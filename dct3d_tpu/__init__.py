@@ -1,11 +1,11 @@
-"""dct3d_tpu — a TPU-native 3D-DCT video codec framework.
+"""dct3d_tpu — a 3D-DCT video codec on an accelerator (JAX/XLA).
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 julianopiccoli/3dDCTVideoEncoding (see SURVEY.md): 8-frame GOPs transformed in
 8x8x8 cubes by a 3D DCT, quantized with the analytic quantization function,
 serialized in 3D diagonal-slice (zigzag) order, entropy-coded with signed
 Exp-Golomb and DEFLATE-compressed — with the transform chain folded into
-single MXU matmuls, device-side parallel bit packing, and shard_map scale-out
+single matmuls, device-side parallel bit packing, and shard_map scale-out
 over GOP/tile meshes.
 """
 

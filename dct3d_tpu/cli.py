@@ -3,8 +3,8 @@
 Mirrors the reference's entry points (SURVEY.md §1 L5/L6):
   encode/decode     <in> <out> <width> <height> [frames]  — main.c:27-44,
                     Encoder.java:17, Decoder.java:18 (geometry out of band)
-  devices           — `codec list_platforms` (main.c:25-26) for TPU/JAX
-  capture           — CaptureScreen.java (synthetic source; no display on TPU)
+  devices           — `codec list_platforms` (main.c:25-26) for JAX
+  capture           — CaptureScreen.java (synthetic source; no display needed)
   split / mix       — RGBUtils.java:39-131
   render            — RenderVideo.java (headless: PNG export + stats)
   psnr              — new: quality measurement (absent in the reference)
@@ -31,8 +31,8 @@ def _cfg_from_args(args) -> CodecConfig:
     if level is None:
         # Reference parity wants Z_BEST_COMPRESSION (encoder.c:139); the
         # turbo profile's zlib mode deflates ~6x more bytes (the raw nibble
-        # plane), and level 9 there costs 1.4 s/GOP at 1080p for ~5% rate —
-        # default it to 6 (PERFORMANCE.md measurement).  Turbo's default
+        # plane), where level 9 costs several times level 6's time for a
+        # few percent of rate — default it to 6.  Turbo's default
         # codec is zstd, which ignores this knob.
         level = 6 if getattr(args, "turbo", False) else 9
     return CodecConfig(
@@ -107,7 +107,7 @@ def _add_codec_args(p: argparse.ArgumentParser) -> None:
         "identical bytes; buffer-sizing only).  Content that overflows "
         "retries worst-case and after 2 consecutive overflows the budget "
         "climbs permanently (N -> 6 -> worst case), so noisy sources "
-        "settle automatically (PERFORMANCE.md)",
+        "settle automatically",
     )
     p.add_argument(
         "--dtype", default="float32",
@@ -115,7 +115,7 @@ def _add_codec_args(p: argparse.ArgumentParser) -> None:
         help="transform matmul dtype: float32 (default) is byte-exact "
         "reference parity; bfloat16 is the fast profile — the stream stays "
         "reference-decodable within 0.7 dB (tests/test_pipeline.py pins "
-        "the floor; RD/speed table in PERFORMANCE.md)",
+        "the floor)",
     )
     p.add_argument(
         "--stats", action="store_true",
@@ -369,7 +369,7 @@ def cmd_encode(args) -> int:
         # (three sequential per-channel encodes over the same frames); a
         # pipe cannot be re-read, so this path buffers — loudly.  --pad
         # pads per batch and --index patches its member header at finish,
-        # so both STREAM at constant RSS (round 4; VERDICT r3 #7).
+        # so both STREAM at constant RSS.
         print(
             "warning: --rgb with piped input buffers the WHOLE pipe in "
             "RAM (channel passes re-read the footage; an hour of 1080p "
@@ -560,7 +560,7 @@ def cmd_encode(args) -> int:
         enc = ShardedEncoder(width, height, mesh, cfg)
     else:
         enc = StreamingEncoder(width, height, cfg)
-    # Seekability is the DEFAULT for file outputs (VERDICT r4 #3): wrap
+    # Seekability is the DEFAULT for file outputs: wrap
     # the stream in an indexed container so decode needs no frame count
     # and the host entropy stage jumps straight to every GOP.  --parity
     # keeps the raw reference-byte-exact layout (explicit --index then
@@ -1201,7 +1201,7 @@ def cmd_psnr(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="dct3d_tpu", description="TPU-native 3D-DCT video codec"
+        prog="dct3d_tpu", description="3D-DCT video codec (JAX/XLA)"
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 

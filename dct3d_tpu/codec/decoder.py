@@ -181,8 +181,8 @@ class StreamingDecoder:
             vals = self.source.try_read(self._coeffs_per_gop)
         if vals is None:
             return None
-        # One device dispatch per GOP: single compiled shape per geometry
-        # (multi-GOP repack shapes compile pathologically slowly on TPU).
+        # One device dispatch per GOP: a single compiled shape per
+        # geometry.
         per = self._coeffs_per_gop
         batches = [
             _undelta(

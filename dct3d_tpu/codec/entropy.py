@@ -1,6 +1,7 @@
 """Host-side entropy layer: Exp-Golomb (native C / NumPy) + streaming zlib.
 
-Production encode packs bits on the TPU (ops/bitpack.py); this module supplies
+Production encode packs bits on the device (ops/bitpack.py); this module
+supplies
   * the serial decode path (native C, NumPy fallback),
   * a CPU encode path (for hosts without an accelerator),
   * streaming DEFLATE with the reference's exact chunk semantics:
@@ -286,7 +287,7 @@ def speculative_planar4_chunks(payload, values_per_chunk: int, n_chunks: int,
     speculative_positions discovers chunk boundaries with a parallel scan
     and the chunks are then decoded in a second full pass — two table
     walks per codeword, which put the plain-stream path at ~half the
-    indexed path's throughput (PERFORMANCE.md round 4).  Here the segment
+    indexed path's throughput.  Here the segment
     walk IS the decode: every worker speculatively DECODES its byte-
     aligned segment (local nibble plane + exceptions), the stitch
     validates each segment by the exact position handshake (a failed

@@ -4,7 +4,7 @@ One fused XLA program per direction (SURVEY.md §7 M1/M2):
 
   encode step:  (T, H, W) uint8
                 -> cube repack (relayout)
-                -> (num_cubes, cube) @ (cube, cube) f32 matmul on the MXU
+                -> (num_cubes, cube) @ (cube, cube) f64 matmul
                    [3D DCT + quantization + zigzag folded into the matrix]
                 -> round  -> Exp-Golomb codewords -> device bit pack
   decode step:  codes -> matmul -> clamp -> uint8 frames
@@ -13,8 +13,7 @@ The reference spreads this across a thread-pool of scalar loops
 (Transform.java:63-104, DCT.java:41-59) or two OpenCL reduction kernels
 (3dDCT.cl:43-143) plus host loops for quantization and bit I/O
 (encoder.c:47-71).  Here the whole encode GOP step is a single compiled
-XLA executable; rounding, codeword math and packing fuse into the matmul's
-epilogue or run on the VPU.
+XLA executable; rounding and codeword math fuse into the matmul's epilogue.
 """
 
 from __future__ import annotations
@@ -30,36 +29,65 @@ from ..config import CodecConfig
 from ..ops import bitpack, dct, expgolomb, quant, relayout
 from . import framing
 
-# float32 matmuls on the MXU need HIGHEST precision (3x bf16 passes) to keep
-# quantized-integer parity with the float64 oracle; see SURVEY.md §7 #3.
+# Every float32 matmul names its precision: without it a GPU may run the
+# product in TF32, exact only for integers up to 2^11.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
-def _round_half_away(x, bias=0.5):
-    """q = sign(x)*floor(|x| + bias).  bias=0.5 is C roundf() semantics —
-    ties away from zero (encoder.c:53; jnp.round is half-to-even and would
-    diverge from the reference).  bias<0.5 is a deadzone quantizer: an
-    encoder-side-only RD improvement, the stream stays reference-decodable
-    (the decoder's dequantization is bias-agnostic)."""
-    return jnp.trunc(x + jnp.copysign(bias, x))
+def encode_dtype(cfg: CodecConfig):
+    """dtype of the encode matmul: float64 for the parity profile
+    (compute_dtype float32), else compute_dtype.  A float32 product flips
+    a few quantized coefficients per GOP across rounding boundaries vs
+    the float64 oracle, whatever the precision setting; float64 with the
+    tie snap of _quantize gives exact-arithmetic integers whatever the
+    summation order."""
+    if cfg.compute_dtype == "float32":
+        return np.float64
+    return np.dtype(cfg.compute_dtype)
+
+
+def round_half_away(x, bias, tol):
+    """sign(x) * floor(|x| + bias): half away from zero at bias 0.5, as
+    C's roundf (encoder.c:53; jnp.round is half-to-even and would diverge
+    from the reference); bias < 0.5 is a deadzone quantizer.  |x| within
+    `tol` of a rounding boundary, where frac(|x|) = 1 - bias, counts as on
+    it and rounds up, as the exact value of a tie does."""
+    a = jnp.abs(x)
+    f = jnp.floor(a)
+    snap = jnp.abs(a - f - (1.0 - bias)) < tol
+    return jnp.copysign(jnp.where(snap, f + 1.0, jnp.floor(a + bias)), x)
+
+
+def _tie_tolerance(enc_t, cube: int):
+    """Per output column, a bound on the float64 product's error for uint8
+    pixels in any summation order: (cube + 2) units of 2^-53 (the sum, the
+    products, and enc_t's own rounding) times sum_n 255 |enc_t[n, k]|.
+    Some DCT frequencies give rational coefficients for suitable integer
+    pixels, so a coefficient can sit exactly on a rounding boundary; the
+    bound puts every such tie within reach of round_half_away's snap."""
+    return (cube + 2) * 2.0**-53 * 255.0 * jnp.sum(jnp.abs(enc_t), axis=0)
 
 
 def _quantize(cubes, enc_t, cfg):
-    """(num_cubes, cube) pixel cubes -> int32 quantized zigzag coefficients.
+    """(num_cubes, cube) uint8 pixel cubes -> int32 quantized zigzag
+    coefficients.
 
-    The matmul folds DCT + 1/divisor + zigzag (ops/dct.py).  DC (zigzag
-    column 0, divisor 1) is the one coefficient where a 1-ulp f32 wobble
-    can cross the 0.5 rounding boundary vs the f64 oracle (observed ~6 per
-    16.6M values on boundary-adversarial content, all at DC): its cube
-    sums are exact integers (< 2^20), so the matmul's DC is replaced with
-    the exact fixed-point quantizer — a dozen elementwise int32 ops that
-    fuse into the round epilogue (ops/quant.exact_dc_quant).
+    The matmul folds DCT + 1/divisor + zigzag (ops/dct.py).  A float64
+    enc_t (encode_dtype) runs it in float64, with 64-bit types enabled
+    for this product alone, and snaps exact ties (_tie_tolerance).  DC
+    (zigzag column 0, divisor 1) is replaced by the exact fixed-point
+    quantizer of its integer cube sums (ops/quant.exact_dc_quant), a dozen
+    elementwise int32 ops that fuse into the round epilogue.
 
     PRECONDITION: `cubes` are non-negative pixel values (uint8-derived).
     exact_dc_quant's limb split silently corrupts on negative sums — a
     future signed level shift must rework it, not just flow through."""
-    scaled = jnp.dot(cubes, enc_t, precision=_PRECISION)
-    q = _round_half_away(scaled, cfg.quant_bias).astype(jnp.int32)
+    f64 = enc_t.dtype == jnp.float64
+    with jax.enable_x64(f64):
+        scaled = jnp.dot(cubes.astype(enc_t.dtype), enc_t,
+                         precision=_PRECISION)
+        tol = _tie_tolerance(enc_t, cfg.cube_size) if f64 else 0.0
+        q = round_half_away(scaled, cfg.quant_bias, tol).astype(jnp.int32)
     if cfg.cube_size <= 4096:
         sums = jnp.sum(cubes.astype(jnp.int32), axis=-1)
         dc = quant.exact_dc_quant(sums, cfg.cube_size, cfg.quant_bias)
@@ -89,35 +117,12 @@ def _frames_to_q(frames, enc_t, cfg):
         # Frames arrived as wrapping temporal deltas (cheap-to-compress on
         # the wire); reconstruct exactly with a mod-256 prefix sum.  The
         # scan stays in uint8 — wrapping adds ARE the mod — so no int32
-        # blow-up of the frame volume ever touches HBM.
+        # blow-up of the frame volume ever touches device memory.
         frames = jax.lax.associative_scan(jnp.add, frames, axis=0)
-    t, h, w = frames.shape
-    if (relayout.supports(cfg, h, w) and t % 8 == 0
-            and bitpack._tpu_backend()):
-        # Pallas word-transpose relayout in a permuted column order, then
-        # an exact one-hot bf16 matmul restores cube order on the MXU
-        # (uint8 pixels are exact in bf16, one product per output) — the
-        # DCT matmul sees a BIT-IDENTICAL operand to frames_to_cubes, so
-        # float64-oracle parity is untouched.  0.48 + ~0.1 ms vs the
-        # 1.6-1.9 ms XLA 6-axis transpose (tools/proto_relayout_perm.py).
-        perm = relayout.frames_to_cubes_perm(frames)
-        cubes = jnp.dot(
-            perm.astype(jnp.bfloat16),
-            relayout.unscramble_matrix(),
-            preferred_element_type=jnp.float32,
-        ).astype(enc_t.dtype)
-    else:
-        # Keep the cube relayout in uint8: without a barrier XLA may fuse
-        # the f32 convert into the 6-axis transpose, running the relayout
-        # copy at 4 bytes/pixel.  The transpose (8-wide minor dims,
-        # tile-hostile) is the transform stage's whole cost — the HIGHEST
-        # matmul on pre-cubed input measures ~0 ms
-        # (tools/proto_transform_variants.py: base 2.00 / u8stage 1.77 /
-        # floor ~0 ms per 1080p GOP in isolation; einsum-folded and
-        # f32-staged reformulations measure WORSE, 3.9-4.3 ms).
-        cubes = jax.lax.optimization_barrier(
-            framing.frames_to_cubes(frames, cfg)
-        ).astype(enc_t.dtype)
+    # Keep the cube relayout in uint8: without a barrier XLA may fuse the
+    # float convert into the 6-axis transpose, running the relayout copy
+    # at 4-8 bytes/pixel.
+    cubes = jax.lax.optimization_barrier(framing.frames_to_cubes(frames, cfg))
     return _quantize(cubes, enc_t, cfg)
 
 
@@ -132,7 +137,7 @@ def _encode_core(frames, enc_t, carry_code, carry_bits, max_bytes, cfg,
     max_width = bitpack.max_codeword_bits(cfg.cube_size)
     if q.size % 256 == 0:
         # Fast path: the carry rides as a bit offset and the packer derives
-        # codewords from q in VMEM (no code/width arrays, no concat copies).
+        # codewords from q itself (no code/width arrays, no concat copies).
         packed, total_bits, tail_byte, overflow = bitpack.pack_values(
             q.reshape(-1), carry_code, carry_bits, max_bytes,
             max_width=max_width, w_words=w_words,
@@ -182,15 +187,14 @@ def _finish_frames(pixels, cfg, height, width, perm: bool = False):
     (writeCubes decoder.c:30, Decoder.java:112), frame relayout, and the
     optional transport-delta wire form.
 
-    perm=True: pixels arrived in the relayout kernel's sigma-permuted
-    column order (column-permuted decode matrices — same dot products,
-    bit-exact values), so the frame relayout is the Pallas word-transpose
-    inverse instead of the ~1.7 ms XLA 6-axis transpose."""
+    perm=True: pixels arrived in the sigma-permuted column order
+    (column-permuted decode matrices — same dot products, bit-exact
+    values), so the frame relayout is the word-transpose inverse
+    (ops/relayout.cubes_perm_to_frames) instead of the 6-axis transpose."""
     pixels = jnp.clip(pixels, 0.0, 255.0)
     if perm:
         frames = relayout.cubes_perm_to_frames(
             pixels.astype(jnp.uint8), height=height, width=width,
-            use_pallas=bitpack._tpu_backend(),
         )
     else:
         frames = framing.cubes_to_frames(pixels, cfg, height, width)
@@ -203,15 +207,13 @@ def _finish_frames(pixels, cfg, height, width, perm: bool = False):
 
 
 def _perm_decode(cfg, height, width, dec_me, dec_mo):
-    """Shared gate for the permuted decode fast path: when the relayout
-    kernel covers the geometry, permute the decode matrices' COLUMNS by
-    inv_sigma (same dot products, reordered outputs — decoded pixels
-    bit-identical) so _finish_frames(perm=True) can run the word-transpose
-    inverse relayout instead of the XLA 6-axis transpose.  Backend-
-    independent: on CPU the inverse runs through XLA (bit-identical), so
-    the whole CPU suite exercises this production composition.  ONE
-    helper so decode_step / planar4_to_frames / sharded_decode_step can
-    never diverge in layout handling.  Returns (perm, dec_me, dec_mo)."""
+    """Shared gate for the permuted decode path: when the word relayout
+    covers the geometry, permute the decode matrices' COLUMNS by inv_sigma
+    (same dot products, reordered outputs — decoded pixels bit-identical)
+    so _finish_frames(perm=True) can run the word-transpose inverse
+    relayout instead of the 6-axis transpose.  ONE helper so decode_step /
+    planar4_to_frames / sharded_decode_step can never diverge in layout
+    handling.  Returns (perm, dec_me, dec_mo)."""
     if not relayout.supports(cfg, height, width):
         return False, dec_me, dec_mo
     inv = relayout.inv_sigma(cfg.cube_size)
@@ -222,11 +224,10 @@ def _dequant_matmul(ce, co, dec_me, dec_mo):
     """Inverse transform as even-feature + odd-feature half matmuls.
 
     The split exists so the packed-nibble upload never interleaves its two
-    planes (a 16.6M-element stride-2 shuffle XLA executes near-serially,
-    ~12 ms/GOP at 1080p).  EVERY decode path uses this same summation order
-    so decoded pixels stay identical across upload formats (the
-    transparency invariant); vs the float64 oracle the f32 result keeps the
-    usual <=1 LSB envelope."""
+    planes (a 16.6M-element stride-2 shuffle).  EVERY decode path uses this
+    same summation order so decoded pixels stay identical across upload
+    formats (the transparency invariant); vs the float64 oracle the f32
+    result keeps the usual <=1 LSB envelope."""
     return (
         jnp.dot(ce.astype(dec_me.dtype), dec_me, precision=_PRECISION)
         + jnp.dot(co.astype(dec_mo.dtype), dec_mo, precision=_PRECISION)
@@ -250,8 +251,8 @@ def decode_step_planar(coeff8, exc_idx, exc_val, dec_me, dec_mo, *, cfg,
                        height, width):
     """decode_step taking an int8 coefficient plane + sparse exceptions.
 
-    Host->device bandwidth is the decode bottleneck (int32 coefficients are
-    4 bytes each); ~99.9% of quantized coefficients fit int8, so the host
+    int32 coefficients are 4 bytes each on the host->device link, but
+    ~99.9% of quantized coefficients fit int8, so the host
     ships an int8 plane plus an exception list (flat index, true value) and
     the device restores the outliers with one small scatter.  Padding slots
     use an out-of-range index and are dropped."""
@@ -296,14 +297,12 @@ def planar4_to_frames(plane, exc_idx, exc_val, dec_me, dec_mo, *, cfg,
     (turbo._parse_payload(split_dc=True)); on the FLAT path the host
     derives it exactly from nibble column 0 + the DC exceptions
     (decoder._split_dc_flat) — either way the matmul operands are
-    bit-identical to the scatter route's, and the scatter shrinks from
-    ~40K to the ~8K true outliers (element scatters are latency-bound;
-    PERFORMANCE.md round 4/5)."""
+    bit-identical to the scatter route's, and the scatter shrinks to the
+    true outliers."""
     hc = cfg.cube_size // 2
     if wire:
         # The wire's byte order never materializes: un-bitcasting the word
-        # transpose back to plane bytes costs ~3.2 ms/GOP at 1080p in XLA
-        # layout copies (tools/profile_decode_stages.py round 4).  Instead
+        # transpose back to plane bytes would cost layout copies.  Instead
         # peel nibbles ELEMENTWISE from the i32 word rows (block k = byte k
         # of every word), scatter exceptions in the word-grouped order, and
         # restore natural pair order with the exact one-hot matmul
@@ -311,9 +310,7 @@ def planar4_to_frames(plane, exc_idx, exc_val, dec_me, dec_mo, *, cfg,
         # one-hot products, so the dequant matmul sees operands
         # BIT-IDENTICAL to the flat-plane path (same values, same
         # summation order; the transparency invariant holds).
-        from ..ops.bitpack import _tpu_backend
-
-        wt = relayout.wire_words(plane, use_pallas=_tpu_backend())
+        wt = relayout.wire_words(plane)
         cubes = wt.shape[0]
         lo_p = jnp.concatenate(
             [(((wt >> (8 * k)) & 0xF) ^ 8) - 8 for k in range(4)], axis=1)
@@ -343,8 +340,7 @@ def planar4_to_frames(plane, exc_idx, exc_val, dec_me, dec_mo, *, cfg,
             # Dense per-cube DC shipped as its own vector (turbo wire,
             # _parse_payload(split_dc=True)): pair 0 is COLUMN 0 of the
             # word-grouped layout, so a concat splice replaces scattering
-            # `cubes` extra elements — identical operand values, ~0.5
-            # ms/GOP less element-latency at 1080p.
+            # `cubes` extra elements — identical operand values.
             lo_p = jnp.concatenate(
                 [dc.astype(jnp.int32)[:, None], lo_p[:, 1:]], axis=1
             )
@@ -383,8 +379,7 @@ def planar4_to_frames(plane, exc_idx, exc_val, dec_me, dec_mo, *, cfg,
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def quantize_step(frames, enc_t, *, cfg):
     """Frames -> quantized zigzag int32 coefficients (no bit packing)."""
-    cubes = framing.frames_to_cubes(frames, cfg).astype(enc_t.dtype)
-    return _quantize(cubes, enc_t, cfg)
+    return _quantize(framing.frames_to_cubes(frames, cfg), enc_t, cfg)
 
 
 class TransformContext:
@@ -397,12 +392,16 @@ class TransformContext:
     def __init__(self, cfg: CodecConfig | None = None):
         self.cfg = cfg or CodecConfig()
         dtype = np.dtype(self.cfg.compute_dtype)
-        self.enc_t = jnp.asarray(dct.encode_matrix(self.cfg, dtype))
-        # Pair-permuted encode matrix for the turbo profile (even zigzag
-        # columns first; ops/dct.encode_matrix_pair).  Built eagerly — a
-        # lazy property would capture a tracer if first touched inside a
-        # jit trace, and the constant is only cube^2 floats.
-        self.enc_t_pair = jnp.asarray(dct.encode_matrix_pair(self.cfg, dtype))
+        edt = encode_dtype(self.cfg)
+        with jax.enable_x64(edt == np.float64):
+            self.enc_t = jnp.asarray(dct.encode_matrix(self.cfg, edt))
+            # Pair-permuted encode matrix for the turbo profile (even
+            # zigzag columns first; ops/dct.encode_matrix_pair).  Built
+            # eagerly — a lazy property would capture a tracer if first
+            # touched inside a jit trace, and the constant is only cube^2
+            # floats.
+            self.enc_t_pair = jnp.asarray(
+                dct.encode_matrix_pair(self.cfg, edt))
         dec_m = dct.decode_matrix(self.cfg, dtype)
         self.dec_m = jnp.asarray(dec_m)
         # Even/odd coefficient-row halves for the split inverse matmul

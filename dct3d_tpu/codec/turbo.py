@@ -2,24 +2,22 @@
 
 The reference's entropy stack (Exp-Golomb + zlib) is inherently bit-serial
 on the host side; the repo's device bit-packer makes ENCODE parallel, but
-host decode still walks codewords.  The turbo profile is the TPU-native
-alternative: the wire carries exactly the codec's device transport format —
-a packed-nibble plane of quantized zigzag coefficients plus a sparse
-exception list — block-compressed per GOP.  Consequences:
+host decode still walks codewords.  The turbo profile is the
+accelerator-native alternative: the wire carries exactly the codec's
+device transport format — a packed-nibble plane of quantized zigzag
+coefficients plus a sparse exception list — block-compressed per GOP.  Consequences:
 
-  * encode: the device step is transform + nibble pack + MXU exception
+  * encode: the device step is transform + nibble pack + exception
     compaction (ops/exceptions.py) — the whole Exp-Golomb bit-pack stage
-    (~60% of the reference-profile step) disappears;
+    disappears;
   * decode: the host does nothing but decompress (GOP-parallel across
     members); planes feed decode_step_planar4 directly;
   * pixels are IDENTICAL to the reference profile (same quantized
     integers, same inverse transform) — only the container differs;
   * rate: with the coefficient-pair-major wire layout + dense delta DC
     stream, SMALLER than the reference stack across the quant range
-    even at the speed-knee default zstd-3 (~0.22 bpp; 0.207 at zstd-10 /
-    0.217 zlib-6, vs 0.312 reference at 1080p quant 5 — measurements in
-    PERFORMANCE.md; `sweep --turbo` reports both, cfg.turbo_zstd_level
-    picks the point).
+    even at the speed-knee default zstd-3 (`sweep --turbo` reports both
+    rates; cfg.turbo_zstd_level picks the point).
 
 Wire format (docs/FORMAT.md): one D3MH member (type 5) per GOP; payload =
 four length-prefixed compressed streams (coefficient-pair-major nibble
@@ -137,9 +135,8 @@ def _plane_and_tables(qp, slots: int, wire: bool = False):
     qp: (num_cubes, cube) quantized coefficients in PAIR-PERMUTED column
     order (even zigzag indices first, then odd — ops/dct.
     encode_matrix_pair), so the two nibble halves are contiguous slices
-    and the pack is pure elementwise.  The flat-pair formulation
-    (q.reshape(-1, 2)) was a 16.6M stride-2 interleave XLA executed
-    near-serially: +12.5 ms per 1080p GOP (tools/profile_turbo.py).
+    and the pack is pure elementwise, with no 16.6M stride-2 interleave
+    (the flat-pair formulation q.reshape(-1, 2)).
 
     The DC coefficient (zigzag index 0 = permuted column 0; divisor
     max(1, q*0) = 1) is out-of-nibble for essentially every cube, so it
@@ -149,18 +146,17 @@ def _plane_and_tables(qp, slots: int, wire: bool = False):
 
     wire=True emits the plane already in the WIRE's coefficient-pair-major
     (cube/2, cubes) layout (ops/relayout.plane_to_wire: word transpose +
-    byte peel, +0.38 ms/GOP on a v5e) so _member_payload skips the ~16
-    ms/GOP host byte_transpose entirely; wire=False keeps the flat
-    transport layout (decode-side staging, measurement tools)."""
+    byte peel) so _member_payload skips the host byte_transpose entirely;
+    wire=False keeps the flat transport layout (decode-side staging,
+    measurement tools)."""
     cube = qp.shape[-1]
     half = cube // 2
     qe, qo = qp[:, :half], qp[:, half:]
     plane = ((qe & 0xF) | ((qo & 0xF) << 4)).astype(jnp.uint8)
     if wire:
-        from ..ops.bitpack import _tpu_backend
         from ..ops.relayout import plane_to_wire
 
-        plane = plane_to_wire(plane, use_pallas=_tpu_backend())
+        plane = plane_to_wire(plane)
     else:
         plane = plane.reshape(-1)
     dc = qe[:, 0].astype(jnp.int16)
@@ -206,10 +202,10 @@ def encode_step_turbo(frames, enc_t_pair, *, cfg, slots, wire: bool = False):
 
 
 def _compress(data: bytes, cfg: CodecConfig) -> bytes:
-    """One wire stream.  zstd (default) measures ~2x faster to compress,
-    ~4x faster to inflate, AND ~5% smaller than DEFLATE level 6 on the
-    1080p bench plane (see PERFORMANCE.md); cfg.turbo_codec="zlib" keeps a
-    stdlib-only wire.  Falls back to zlib when zstandard is absent."""
+    """One wire stream.  zstd (default) compresses and inflates faster
+    than DEFLATE level 6 on the nibble plane, and smaller;
+    cfg.turbo_codec="zlib" keeps a stdlib-only wire.  Falls back to zlib
+    when zstandard is absent."""
     if cfg.turbo_codec == "zstd" and _zstd is not None:
         # write_checksum gives the zstd wire the same bit-flip detection
         # zlib's adler32 gives the zlib wire (4 bytes per stream).
@@ -249,9 +245,8 @@ def _member_payload(plane: np.ndarray, dc: np.ndarray, idx: np.ndarray,
     The nibble plane is stored COEFFICIENT-pair-major — byte [jj, c] packs
     coefficients (2jj, 2jj+1) of cube c — i.e. the transpose of the device
     transport's (cubes, cube/2) byte grid.  Same-frequency coefficients
-    share statistics, so DEFLATE compresses this layout ~1.6x better than
-    cube-major (0.22 vs 0.34 bpp at z6 on the 1080p bench clip; see
-    PERFORMANCE.md), which puts turbo BELOW the reference profile's rate.
+    share statistics, so DEFLATE compresses this layout much better than
+    cube-major, which puts turbo BELOW the reference profile's rate.
     Exception indices are stored in the same coefficient-major order as
     sorted deltas (exceptions cluster by frequency, so deltas are small).
 
@@ -312,8 +307,7 @@ def _parse_payload(payload: bytes, cube: int, wire: bool = False,
     split_dc=True (wire only) skips the merge and returns
     (plane, dc int32, idx, val): DC is pair 0 = COLUMN 0 of the
     word-grouped layout, so the device splices it with a concat instead
-    of scattering `cubes` extra elements (~0.5 ms/GOP at 1080p — the
-    scatter is element-latency-bound; PERFORMANCE.md round 4)."""
+    of scattering `cubes` extra elements."""
     if len(payload) < 16:
         raise EOFError("torn turbo member (truncated header)")
     a, b, c, d = struct.unpack_from("<IIII", payload, 0)
@@ -488,10 +482,7 @@ class TurboShardedEncoder:
                  slots: int = exceptions.DEFAULT_SLOTS,
                  member_type: int = MEMBER_TURBO):
         from jax.sharding import NamedSharding, PartitionSpec as P
-        try:
-            from jax import shard_map
-        except ImportError:  # pragma: no cover
-            from jax.experimental.shard_map import shard_map
+        from jax import shard_map
 
         from ..parallel.mesh import GOP_AXIS, TILE_AXIS
 
@@ -650,10 +641,7 @@ class TurboShardedDecoder:
         import os
 
         from jax.sharding import NamedSharding, PartitionSpec as P
-        try:
-            from jax import shard_map
-        except ImportError:  # pragma: no cover
-            from jax.experimental.shard_map import shard_map
+        from jax import shard_map
 
         from ..parallel.mesh import GOP_AXIS, TILE_AXIS
         from .transform import planar4_to_frames

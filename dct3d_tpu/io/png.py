@@ -1,7 +1,7 @@
 """Dependency-free PNG reading (the ingestion half of io/render.py's writer).
 
 The reference captures real screen content via AWT Robot
-(CaptureScreen.java:16-163); a TPU host has no display, so real footage
+(CaptureScreen.java:16-163); a headless host has no display, so real footage
 arrives as files instead — PNG sequences (exported by ffmpeg, screenshots,
 render farms) are the lowest-common-denominator input.  SURVEY.md §7 M5
 planned this "frame-from-PNG path".

@@ -1,9 +1,10 @@
 """Headless rendering / inspection of raw video.
 
 The reference plays raw RGB in a Swing window (RenderVideo.java:14-122);
-a TPU host has no display, so this renders frames to PNG (via matplotlib if
-present, else a minimal built-in PNG writer) and prints stream statistics —
-the observability the reference lacks (SURVEY.md §5 metrics).
+an accelerator host has no display, so this renders frames to PNG (via
+matplotlib if present, else a minimal built-in PNG writer) and prints
+stream statistics — the observability the reference lacks (SURVEY.md §5
+metrics).
 """
 
 from __future__ import annotations
@@ -107,7 +108,7 @@ def play_video(
     """fps-paced playback: stream the raw video as YUV4MPEG2 into a player
     process, pacing frames against a deadline clock — the analogue of the
     reference's Swing playback loop (RenderVideo.java:54-87: render, then
-    sleep the remainder of the frame period).  A TPU host has no display,
+    sleep the remainder of the frame period).  A headless host has no display,
     so the window belongs to whatever player the user points at (ffplay /
     mpv by default, any y4m-reading command via `player`).
 

@@ -1,11 +1,11 @@
-"""Synthetic video sources — the TPU-environment stand-in for CaptureScreen.
+"""Synthetic video sources — the headless stand-in for CaptureScreen.
 
 The reference captures the desktop with an AWT Robot at a target fps, scales
 by integer factors, and pads dimensions up to multiples of 8
-(CaptureScreen.java:16-163).  A TPU pod has no display, so this module
-generates deterministic test/benchmark content with the same output contract:
-headerless raw frames, geometry a multiple of the block size, optional
-interleaved-RGB mode (the reference's actual output format, 3 B/px —
+(CaptureScreen.java:16-163).  An accelerator host has no display, so this
+module generates deterministic test/benchmark content with the same output
+contract: headerless raw frames, geometry a multiple of the block size,
+optional interleaved-RGB mode (the reference's actual output format, 3 B/px —
 CaptureScreen.java:135-147 — despite its README claiming grayscale).
 """
 

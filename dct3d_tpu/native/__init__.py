@@ -1,9 +1,9 @@
 """Native (C) host-side components, built on demand with the system compiler.
 
-The reference's host runtime is C (SURVEY.md §2.2); the TPU-native framework
+The reference's host runtime is C (SURVEY.md §2.2); this codec
 keeps the genuinely serial host work — streaming Exp-Golomb decode — in C as
-well, compiled once into a shared library and bound via ctypes (pybind11 is
-not available in this environment).  Everything has a pure-Python/NumPy
+well, compiled once into a shared library and bound via ctypes.
+Everything has a pure-Python/NumPy
 fallback so the framework degrades gracefully without a compiler.
 """
 

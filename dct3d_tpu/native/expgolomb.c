@@ -1,6 +1,6 @@
 /* Streaming signed Exp-Golomb bit codec (host side).
  *
- * TPU-native framework's equivalent of the reference's C entropy codec
+ * This codec's equivalent of the reference's C entropy codec
  * (reference: 3d-DCT-video-encoding-OpenCL/ExpGolomb.c:5-130) — same bit
  * format, new implementation:
  *   - 64-bit accumulator reader/writer instead of per-bit byte twiddling,
@@ -8,7 +8,7 @@
  *   - explicit bit-position cursors so chunked streaming needs no buffer
  *     compaction dance (decoder.c:210-243 in the reference).
  *
- * The encode path is normally executed on the TPU (ops/bitpack.py); this C
+ * The encode path is normally executed on the device (ops/bitpack.py); this C
  * encoder is the CPU fallback and test oracle.  The serial decode path is
  * inherently sequential, so it lives here at memory speed.
  *

@@ -1,23 +1,19 @@
 """Device-side parallel bit packing of Exp-Golomb codewords.
 
 The reference packs bits serially on the host (ExpGolombWriter.java:19-49,
-ExpGolomb.c:32-64).  Here packing is data-parallel on the TPU (SURVEY.md §7
-M3).  TPU constraints discovered by measurement (tools/profile_*.py):
-XLA lowers scatters/gathers/searchsorted to near-serial latency-bound loops
-(~7-14 ns per gathered ELEMENT), but a gather of an R-word contiguous ROW
-costs about the same as one word — so the design routes all bulk work
-through the MXU, cumsums, and a small number of ROW gathers:
+ExpGolomb.c:32-64).  Here packing is data-parallel on the device (SURVEY.md
+§7 M3), in two levels:
 
   level 1 — groups of `group` (256) codewords.  Bit offsets inside a group
     are a row-wise cumsum.  Each codeword (field width <= 32 bits)
     contributes to exactly two 32-bit words of a zero-padded per-group
     buffer of `w_words` words, via shifts.  The per-word segment sums are
-    computed EXACTLY as a one-hot matmul on the MXU: one-hot(word index) in
-    bfloat16 x the byte-planes of each contribution (bf16 holds 0..255
-    exactly), f32 accumulation, recombined into uint32 words.  `w_words` is
-    budget-capped (pack_bits_per_value), not worst-case-capped: a ~6x
-    smaller one-hot; groups whose content exceeds the budget raise an
-    `overflow` flag and the driver retries with the worst-case shape.
+    an exact one-hot einsum: one-hot(word index) in bfloat16 x the
+    byte-planes of each contribution (bf16 holds 0..255 exactly), f32
+    accumulation, recombined into uint32 words.  `w_words` is
+    budget-capped (pack_bits_per_value), not worst-case-capped; groups whose
+    content exceeds the budget raise an `overflow` flag and the driver
+    retries with the worst-case shape.
 
   level 2 — the global stream is the concatenation of per-group bit
     strings, each already packed at its *global* bit phase (phase = group
@@ -31,7 +27,7 @@ through the MXU, cumsums, and a small number of ROW gathers:
         output row crosses at most ONE ownership change — the whole output
         is assembled from TWO row gathers (owner of the row's first word,
         owner of its last) over an overlapping-8-word-window table, plus a
-        per-word select.  ~260k row gathers replace ~6M element gathers.
+        per-word select, instead of one element gather per output word.
 
   The carry byte for the next batch (the byte containing bit total_bits-1)
   comes from a dedicated worst-case-sized mini-pack of the last two groups,
@@ -64,24 +60,6 @@ MAX_SPAN_BYTES = 6
 # groups span >= ROW_WORDS-1 whole words, i.e. group >= 256 at width >= 1).
 ROW_WORDS = 8
 
-# NEGATIVE RESULT — chunked tail skip: wrapping the level-2 row gathers in
-# per-chunk lax.cond branches (skip chunks wholly past the stream's last
-# word) measured WORSE, not better: 10.89 ms/GOP unchunked vs 11.54 (16
-# chunks) / 11.81 (4 chunks) for the full encode step at 1080p.  The
-# budget buffer's empty tail was never the cost: tail rows clamp their
-# gather base to row 0, so they hit the same cache line repeatedly and are
-# nearly free — the ~13 ns/row price is for RANDOM rows only.  The conds
-# added pure overhead.  (tools/proto_place_chunked note, 2026-08-17.)
-
-
-def _default_impl() -> str:
-    """Level-2 implementation.  Always the XLA row-gather formulation: the
-    Pallas splice kernel (ops/splice.py) is rejected by Mosaic on real TPUs
-    because bitstream word offsets are not VMEM-tile-aligned — see the
-    STATUS note there for the measurement-driven decision record."""
-    return "xla"
-
-
 def max_codeword_bits(cube_size: int) -> int:
     """Worst-case Exp-Golomb field width for quantized 3D-DCT coefficients
     of 8-bit video: |c| <= 255*sqrt(cube) (orthonormal basis; divisors only
@@ -100,35 +78,14 @@ def budget_w_words(group: int, bits_per_value: float) -> int:
     return max(int(np.ceil(group * bits_per_value / 32.0)) + 2, 6)
 
 
-def _tpu_backend() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover - no backend at all
-        return False
-
-
-def _group_pack(code32, wid, phase, w_words: int):
-    """Level-1 pack of per-group codewords into phase-aligned words.
+def _group_pack_einsum(code32, wid, phase, w_words: int):
+    """Level-1 pack of per-group codewords into phase-aligned words, as a
+    one-hot einsum (exact byte-plane sums in bf16 with f32 accumulation).
 
     code32/wid: (g, group) uint32/int32; phase: (g,) int32 start-bit % 32.
     Returns (g, w_words) uint32.  Contributions whose word index exceeds
     w_words-1 are silently dropped (callers flag that via the budget check).
-
-    On TPU with budget-capped buffers this runs as a Pallas VPU kernel
-    (ops/group_pack.py, ~3x the einsum); the einsum covers CPU, the tiny
-    mini-pack, and the wide worst-case retry shape (its w_words loop is
-    unrolled at trace time).
     """
-    from . import group_pack
-
-    if (w_words <= 64 and code32.shape[0] >= group_pack.GB
-            and _tpu_backend()):
-        return group_pack.group_pack_pallas(code32, wid, phase, w_words)
-    return _group_pack_einsum(code32, wid, phase, w_words)
-
-
-def _group_pack_einsum(code32, wid, phase, w_words: int):
-    """One-hot MXU einsum formulation (exact byte-plane sums in bf16/f32)."""
     g_count, group = code32.shape
     loff = jnp.cumsum(wid, axis=1) - wid + phase[:, None]
     word0 = (loff >> 5).astype(jnp.int32)
@@ -162,8 +119,7 @@ def _group_pack_einsum(code32, wid, phase, w_words: int):
 
 
 def pack_bits(code, width, out_bytes: int, group: int = 256,
-              impl: str | None = None, max_width: int = 32,
-              w_words: int | None = None):
+              max_width: int = 32, w_words: int | None = None):
     """Pack codewords into a byte buffer of static size.
 
     Args:
@@ -175,9 +131,6 @@ def pack_bits(code, width, out_bytes: int, group: int = 256,
       out_bytes: static output buffer size in bytes.
       group: codewords per level-1 group (>= 256; input is zero-padded to a
         multiple).
-      impl: level-2 assembly: "pallas" (TPU splice kernel),
-        "pallas_interpret" (same kernel, interpreter), "xla" (row-gather
-        formulation), None = auto.
       max_width: static bound on field widths (<= 32); widths exceeding it
         corrupt the stream.
       w_words: per-group buffer words.  None = worst case (cannot overflow).
@@ -210,24 +163,8 @@ def pack_bits(code, width, out_bytes: int, group: int = 256,
     wid = width.reshape(g_count, group)
 
     gbits, gstart, total_bits, phase, sw, overflow = _geometry(wid, 0, w_words)
-    buf_groups = _group_pack(code32, wid, phase, w_words)
+    buf_groups = _group_pack_einsum(code32, wid, phase, w_words)
     tail_byte = _tail_byte(code32, wid, gstart, total_bits)
-
-    impl = impl or _default_impl()
-    if impl in ("pallas", "pallas_interpret"):
-        from .splice import splice
-
-        nwords = (out_bytes + 3) // 4
-        words = splice(
-            buf_groups, sw, (gstart + gbits).astype(jnp.int32),
-            nwords=nwords, group=group,
-            interpret=(impl == "pallas_interpret"),
-        )
-        shifts = jnp.array([24, 16, 8, 0], jnp.uint32)
-        buf = ((words[:, None] >> shifts[None, :]) & 0xFF).astype(jnp.uint8)
-        return (buf.reshape(-1)[:out_bytes], total_bits.astype(jnp.int32),
-                tail_byte.astype(jnp.uint32), overflow)
-
     buf = _place(buf_groups, gbits, gstart, total_bits, out_bytes, w_words)
     return (buf, total_bits.astype(jnp.int32), tail_byte.astype(jnp.uint32),
             overflow)
@@ -286,15 +223,12 @@ def _tail_byte(code32, wid, gstart, total_bits):
 
 
 def _place(buf_groups, gbits, gstart, total_bits, out_bytes: int,
-           w_words: int, dense: bool = False, lastw=None):
+           w_words: int, dense: bool = False):
     """Level 2 (XLA): pre-merge + overlapping-window row gather.
 
     dense=True asserts every group is nonempty (pack_values: 256 codewords
     x >= 1 bit each), which replaces the g_count-element pre-merge boundary
-    gather (near-serial, ~0.9 ms at 1080p) with a one-hot select + shift.
-    lastw (dense only): per-group last occupied word, already selected by
-    the Pallas l1 kernel (group_pack._pack_body emit_last); None falls back
-    to the in-XLA one-hot select (~0.7 ms at 1080p).
+    gather with a one-hot select + shift.
     """
     g_count = buf_groups.shape[0]
     sw = (gstart >> 5).astype(jnp.int32)
@@ -311,15 +245,13 @@ def _place(buf_groups, gbits, gstart, total_bits, out_bytes: int,
         # Predecessor is always g-1; its boundary word is its LAST occupied
         # word, selected one-hot over w_words (elementwise, no gather).
         endw = jnp.clip(((gstart & 31) + gbits - 1) >> 5, 0, w_words - 1)
-        if lastw is None:
-            lastw = jnp.sum(
-                jnp.where(
-                    endw[:, None]
-                    == jnp.arange(w_words, dtype=jnp.int32)[None, :],
-                    buf_groups, 0,
-                ),
-                axis=1, dtype=jnp.uint32,
-            )
+        lastw = jnp.sum(
+            jnp.where(
+                endw[:, None] == jnp.arange(w_words, dtype=jnp.int32)[None, :],
+                buf_groups, 0,
+            ),
+            axis=1, dtype=jnp.uint32,
+        )
         # It overlaps this group's word 0 only when the predecessor's end
         # word IS this group's start word (i.e. gstart[g] % 32 != 0).
         same_word = (
@@ -369,8 +301,8 @@ def _place(buf_groups, gbits, gstart, total_bits, out_bytes: int,
     if dense:
         # Every dense group emits >= 256 bits = ROW_WORDS words, so both
         # sw//8 and (sw+7)//8 are STRICTLY increasing: the scatter indices
-        # are sorted and unique, and scatter-SET with both flags takes
-        # XLA's fast path (~25% faster than the generic scatter-max here).
+        # are sorted and unique, so scatter-SET can declare both flags
+        # instead of running the generic scatter-max.
         def smear(row_idx, vals, init):
             return jax.lax.cummax(
                 jnp.full((nrows,), init, jnp.int32).at[row_idx].set(
@@ -399,8 +331,7 @@ def _place(buf_groups, gbits, gstart, total_bits, out_bytes: int,
     k = jnp.arange(ROW_WORDS, dtype=jnp.int32)[None, :]
     words = jnp.where(k >= (sw_b - w0_glob)[:, None], row_b, row_a)
     # Beyond-stream words read trailing buffer padding via the index clamp;
-    # zero them so the whole static buffer is deterministic.  (Tail rows
-    # clamp to row 0 and are cache-hot — see the negative result above.)
+    # zero them so the whole static buffer is deterministic.
     words = jnp.where((w0_glob[:, None] + k) < total_words, words, 0)
 
     shifts = jnp.array([24, 16, 8, 0], jnp.uint32)
@@ -417,13 +348,12 @@ def pack_values(values, carry_code, carry_bits, out_bytes: int,
     leading partial byte.
 
     The fast-path twin of pack_bits for the encoders: instead of
-    materializing (code, width) arrays in HBM and prepending the carry as a
+    materializing (code, width) arrays in memory and prepending the carry as a
     pseudo-codeword (which forces whole-array copies for the concat and the
     group-multiple pad), the carry rides as a global bit offset
     (carry_bits <= 31, value right-aligned in carry_code) OR-ed into the
-    first buffer word, and the Pallas level-1 kernel derives each group's
-    codewords from the values in VMEM.  Requires n % group == 0 (the
-    encoders' cube batches always are; other callers use pack_bits).
+    first buffer word.  Requires n % group == 0 (the encoders' cube
+    batches always are; other callers use pack_bits).
 
     Returns (buf, total_bits, tail_byte, overflow) exactly like pack_bits.
     """
@@ -432,31 +362,17 @@ def pack_values(values, carry_code, carry_bits, out_bytes: int,
     _check_batch_bits(n, max_width, group)
     worst = worst_case_w_words(group, max_width)
     w_words = worst if w_words is None else min(w_words, worst)
-    v2 = values.reshape(-1, group)
-    g_count = v2.shape[0]
+    g_count = n // group
 
-    # Widths only (stored int8) for the geometry; the packer recomputes
-    # codewords per block in VMEM rather than round-tripping them via HBM.
-    from . import expgolomb, group_pack
+    from . import expgolomb
 
-    wid8 = expgolomb.codewords(values)[1].astype(jnp.int8).reshape(
-        g_count, group
-    )
+    code32, wid = expgolomb.codewords(values)
+    code32 = code32.reshape(g_count, group)
+    wid = wid.reshape(g_count, group)
     gbits, gstart, total_bits, phase, sw, overflow = _geometry(
-        wid8, carry_bits.astype(jnp.int32), w_words
+        wid, carry_bits.astype(jnp.int32), w_words
     )
-
-    if (w_words <= 64 and g_count >= group_pack.GB and _tpu_backend()):
-        buf_groups, lastw = group_pack.group_pack_values_pallas(
-            v2, phase, w_words, with_lastw=True
-        )
-    else:
-        code32, wid = expgolomb.codewords(values)
-        buf_groups = _group_pack_einsum(
-            code32.reshape(g_count, group),
-            wid.reshape(g_count, group), phase, w_words,
-        )
-        lastw = None
+    buf_groups = _group_pack_einsum(code32, wid, phase, w_words)
     # The carry's bits live at [0, carry_bits) of word 0 (group 0 starts at
     # bit carry_bits, so there is no overlap; shift clamp dodges the
     # undefined shift-by-32 when carry_bits == 0, which `where` masks).
@@ -467,15 +383,10 @@ def pack_values(values, carry_code, carry_bits, out_bytes: int,
     buf_groups = buf_groups.at[0, 0].add(lead)
 
     g2 = min(2, g_count)
-    code32m = expgolomb.codewords(v2[-g2:].reshape(-1))[0].reshape(g2, group)
-    tail_byte = _tail_byte(
-        code32m, wid8[-g2:].astype(jnp.int32), gstart[-g2:], total_bits
-    )
+    tail_byte = _tail_byte(code32[-g2:], wid[-g2:], gstart[-g2:], total_bits)
 
-    # The carry lead touches only word 0 of group 0; dense groups hold
-    # >= 256 bits so endw >= 7 and the kernel's lastw is unaffected by it.
     buf = _place(buf_groups, gbits, gstart, total_bits, out_bytes, w_words,
-                 dense=True, lastw=lastw)
+                 dense=True)
     return (buf, total_bits.astype(jnp.int32), tail_byte.astype(jnp.uint32),
             overflow)
 

@@ -1,4 +1,4 @@
-"""3D DCT-II / DCT-III as MXU matmuls, with zigzag + quantization folded in.
+"""3D DCT-II / DCT-III as matmuls, with zigzag + quantization folded in.
 
 The reference computes the 3D DCT by brute force: O(N^2) multiply-adds per
 cube (512x512 per 8x8x8 cube in OpenCL, 3dDCT.cl:43-143; partially-factored
@@ -9,14 +9,14 @@ zero-frequency axis (Transform.java:20-21, DCT.java:81+96-104,
 1D DCT-II bases ``D[k, n] = s(k) * cos(pi * (2n+1) * k / (2N))`` with
 ``s(0) = sqrt(1/N)``, ``s(k>0) = sqrt(2/N)``.
 
-TPU-first design (SURVEY.md §7): instead of translating those kernels, the
-whole per-cube encode chain
+Accelerator-first design (SURVEY.md §7): instead of translating those
+kernels, the whole per-cube encode chain
 
     DCT  ->  divide by max(1, q*(i+j+k))  ->  reorder to zigzag
 
 is folded into ONE constant matrix so encoding a batch of cubes is a single
-``(num_cubes, 512) @ (512, 512)`` float32 matmul plus a round — a shape the
-MXU runs at full tilt (contraction and output dims both 512 >> 128 lanes).
+``(num_cubes, 512) @ (512, 512)`` matmul plus a round — one large GEMM
+(contraction and output dims both 512).
 Decoding is the mirrored matmul plus clamp.  Zigzag and (de)quantization are
 literally free.
 
@@ -97,8 +97,7 @@ def encode_matrix_pair(cfg: CodecConfig, dtype=np.float32) -> np.ndarray:
     round(x_cubes @ Ep) yields quantized coefficients whose even/odd zigzag
     halves are CONTIGUOUS column slices — the turbo profile's nibble pack
     becomes a pure elementwise op on the two halves instead of a 16.6M
-    stride-2 interleave XLA executes near-serially (~12 ms per 1080p GOP,
-    tools/profile_turbo.py).  Column values are identical to
+    stride-2 interleave.  Column values are identical to
     encode_matrix's (same f64 build, same cast), so each quantized integer
     is bit-identical to the reference profile's — only the column ORDER
     differs, and the pair permutation keeps DC at column 0 (the exact-DC

@@ -3,16 +3,11 @@
 The turbo wire format (docs/FORMAT.md, codec/turbo.py) ships quantized
 coefficients as a packed-nibble plane plus an exception list for values
 outside [-8, 7].  Extracting that list on device is the only irregular
-step, and the obvious tool — ``jnp.nonzero``/compaction scatters over the
-16.6M-value batch — is near-serial on XLA-TPU (~7-14 ns/element, see
-ops/bitpack.py).  Instead the compaction rides the same machinery as the
-bit packer: values are grouped (256/group), each exception's within-group
-rank is a row cumsum, and a per-slot selection runs on the VPU in VMEM
-(ops/exc_pack.py, the shipped TPU path) or — the portable fallback — as a
-one-hot (group, slot) pick via exact bf16 einsums on the MXU (local
-indices are < 256 and values split into two byte planes, both exact in
-bf16 with f32 accumulation; measured +3 ms/GOP at 1080p vs the kernel's
-sub-ms, tools/profile_turbo.py).
+step.  The compaction rides the same machinery as the bit packer: values
+are grouped (256/group), each exception's within-group rank is a row
+cumsum, and the per-slot selection is a one-hot (group, slot) pick via
+exact bf16 einsums (local indices are < 256 and values split into two byte
+planes, both exact in bf16 with f32 accumulation).
 
 Groups hold at most ``slots`` exceptions; denser groups raise the overflow
 flag and the driver retries with slots=group (cannot overflow), the same
@@ -31,8 +26,7 @@ DEFAULT_SLOTS = 16
 
 
 def compact_exceptions(values, group: int = 256,
-                       slots: int = DEFAULT_SLOTS, dc_stride: int = 0,
-                       impl: str | None = None):
+                       slots: int = DEFAULT_SLOTS, dc_stride: int = 0):
     """(n,) int32 -> dense per-group exception tables.
 
     Returns (lidx, vals, counts, overflow):
@@ -47,10 +41,6 @@ def compact_exceptions(values, group: int = 256,
     dc_stride > 0 excludes positions with flat index % dc_stride == 0 (the
     DC coefficient of every cube in zigzag order) — the turbo wire ships
     those densely, since DC's divisor is 1 and it is ~always out of range.
-
-    impl: "pallas" (TPU VPU kernel, ops/exc_pack.py), "pallas_interpret"
-    (same kernel, interpreter — CPU tests), "einsum", None = auto (the
-    kernel on real TPUs, einsum elsewhere).
     """
     n = values.shape[0]
     pad = (-n) % group
@@ -62,18 +52,6 @@ def compact_exceptions(values, group: int = 256,
             [values, jnp.zeros((pad,), values.dtype)]
         )
     v2 = values.reshape(-1, group)
-    if impl is None:
-        from .bitpack import _tpu_backend
-
-        impl = "pallas" if _tpu_backend() else "einsum"
-    if slots < group and impl in ("pallas", "pallas_interpret"):
-        from . import exc_pack
-
-        lidx, vals, counts = exc_pack.compact_groups_pallas(
-            v2, slots, dc_stride=dc_stride,
-            interpret=(impl == "pallas_interpret"),
-        )
-        return lidx, vals, counts, jnp.any(counts > slots)
     mask = (v2 < -8) | (v2 > 7)
     if dc_stride:
         flat = (

@@ -6,9 +6,9 @@ The reference divides each coefficient by ``max(1, q * (i + j + k))`` where
 (Decoder.java:82-96, decoder.c:48-59).  The DC coefficient passes unscaled via
 the ``max(1, .)`` floor.
 
-On TPU the divisor never exists as a runtime op: its reciprocal is folded into
-the encode matrix and the divisor itself into the decode matrix (ops/dct.py),
-so quantization costs zero FLOPs beyond the transform matmul.
+On the device the divisor never exists as a runtime op: its reciprocal is
+folded into the encode matrix and the divisor itself into the decode matrix
+(ops/dct.py), so quantization costs zero FLOPs beyond the transform matmul.
 
 Note: because the quantized values are integers and the divisors are integers,
 the reference's dequantization ``round(v * divisor)`` is exactly ``v * divisor``

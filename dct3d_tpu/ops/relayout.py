@@ -1,32 +1,18 @@
-"""Pallas TPU kernel: frame -> cube relayout via word transposes + an
-exact MXU unscramble.
+"""Word-transpose relayouts between cube rows and frames or wire planes.
 
-The 6-axis uint8 cube transpose (framing.frames_to_cubes) is the encode
-transform's whole cost on TPU (~1.9 ms/GOP at 1080p for a 16.6 MB move;
-XLA reformulations pinned negative, PERFORMANCE.md).  Mosaic cannot express
-the exact cube byte order either: 5-D reshapes, strided lane slices, lane
-interleaves and minor collapses are all rejected, and the one legal
-identity-order chain (via a (g,2,64)->(g,64,2) transpose) lowers ~4x
-SLOWER than XLA (tools/proto_relayout_perm.py: 6.96 vs 1.64 ms).
+Decode emits pixels in a PERMUTED cube column order for free: the decode
+matrices' columns are permuted by inv_sigma (same dot products, reordered
+outputs — bit-exact), and cubes_perm_to_frames restores frames with 2-D
+word transposes on i32 words instead of a 6-axis uint8 transpose:
 
-What IS fast (0.48 ms) is a PERMUTED cube layout built from supported ops
-on i32 words:
+  per 8-row slab:   (8,8,W/4) i32 <-> (64,W/4) <-> (W/4,64)
+                    [row 2*bx+w, lane 8*k+i]
 
-  frames u8 (T,H,W) --free XLA bitcast--> (T,H,W/4) i32
-  per 8-row slab:   (8,8,W/4) --collapse--> (64,W/4) --2D transpose-->
-                    (W/4,64)  [row 2*bx+w, lane 8*k+i]
-
-Byte c = 64k+8i+4w+b of cube (by,bx) lands at permuted position
+Byte c = 64k+8i+4w+b of cube (by,bx) sits at permuted position
 sigma(c) = 256w+32k+4i+b of row by*nbw+bx.
 
-The exact order is restored by ONE one-hot matmul on the MXU,
-`perm_cubes @ P` with P[sigma(c), c] = 1: uint8 pixel values are exact in
-bfloat16 and each output column has a single nonzero product, so the
-result is BIT-IDENTICAL to frames_to_cubes(...).astype(f32) — the
-downstream HIGHEST-precision DCT matmul sees the same operand in the same
-summation order, keeping float64-oracle parity (the direct row-permuted
-enc_t variant changes the K summation order and flips ~0.4ppm of
-quantized values — rejected; see tools/proto_relayout_perm.py).
+The turbo wire layout (coefficient-pair-major, docs/FORMAT.md) uses the
+same word trick: plane_to_wire on encode, wire_words on decode.
 
 Reference parity target: readCubes cube enumeration, encoder.c:10-45.
 """
@@ -38,13 +24,12 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def supports(cfg, height: int, width: int) -> bool:
-    """The kernel covers the 8x8x8 cube geometry (block widths that pack
-    whole i32 words); other geometries use the XLA transpose."""
+    """The word relayout covers the 8x8x8 cube geometry (block widths that
+    pack whole i32 words); other geometries use framing's 6-axis
+    transpose."""
     return (
         cfg.block_d == 8 and cfg.block_h == 8 and cfg.block_w == 8
         and height % 8 == 0 and width % 8 == 0
@@ -52,147 +37,65 @@ def supports(cfg, height: int, width: int) -> bool:
 
 
 def sigma(cube_size: int = 512) -> np.ndarray:
-    """sigma[c] = lane of cube byte c in the kernel's permuted layout."""
+    """sigma[c] = lane of cube byte c in the permuted layout."""
     c = np.arange(cube_size)
     k, i = c >> 6, (c >> 3) & 7
     w, b = (c >> 2) & 1, c & 3
     return 256 * w + 32 * k + 4 * i + b
 
 
-def unscramble_matrix(dtype=jnp.bfloat16) -> jax.Array:
-    """P with P[sigma(c), c] = 1: perm_cubes @ P = exact cube bytes."""
-    p = np.zeros((512, 512), np.float32)
-    p[sigma(), np.arange(512)] = 1.0
-    return jnp.asarray(p, dtype=dtype)
-
-
-def _kernel(x_ref, o_ref):
-    x = x_ref[...]  # (1, 8, 8, w32) i32
-    o_ref[...] = x.reshape(64, x.shape[-1]).T[None]
-
-
-def _inv_kernel(x_ref, o_ref):
-    x = x_ref[...]  # (1, w32, 64) i32
-    o_ref[...] = x[0].T.reshape(1, 8, 8, x.shape[1])
-
-
-def _wire_kernel(x_ref, o_ref):
-    o_ref[...] = x_ref[...].T  # (blk, w32) i32 -> (w32, blk)
-
-
-def _wire_peel_kernel(x_ref, o_ref):
-    """Word transpose + in-kernel byte peel: (blk, w32) i32 -> (4*w32, blk)
-    uint8 with wire row 4k+b = byte b of word row k.  Fusing the peel into
-    the kernel removes the 16.6 MB row-interleave stack XLA otherwise runs
-    as a layout copy (round 5: the stack, not the transpose, was the
-    plane_to_wire cost)."""
-    xt = x_ref[...].T  # (w32, blk)
-    parts = [((xt >> (8 * b)) & 0xFF).astype(jnp.uint8) for b in range(4)]
-    o_ref[...] = jnp.stack(parts, axis=1).reshape(
-        4 * xt.shape[0], xt.shape[1]
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("use_pallas", "interpret"))
-def plane_to_wire(plane, use_pallas: bool = True, interpret: bool = False):
+@jax.jit
+def plane_to_wire(plane):
     """(cubes, hc) uint8 transport nibble plane -> (hc, cubes) uint8 wire
     layout (coefficient-pair-major; docs/FORMAT.md) ON DEVICE.
 
-    A direct uint8 transpose is near-serial on XLA-TPU (+178 ms/GOP at
-    1080p, tools/proto_turbo_pairmajor.py); this is the relayout kernel's
-    word trick instead: bitcast rows to i32 (4 plane bytes per word), 2-D
-    word transpose (Pallas block kernel, or XLA's tiled i32 path with
-    use_pallas=False), then peel the 4 bytes per word with elementwise
-    shifts — wire row 4k+b is byte b of word row k.  No byte-granular
-    shuffle ever runs.
+    The word trick instead of a byte-granular transpose: bitcast rows to
+    i32 (4 plane bytes per word), 2-D word transpose, then peel the 4 bytes
+    per word with elementwise shifts — wire row 4k+b is byte b of word row
+    k.
 
     Replaces the drain pool's host byte_transpose (native/expgolomb.c
-    byte_transpose, ~16 ms/GOP/core at 1080p) when the device emits the
-    wire layout directly (turbo.encode_step_turbo(wire=True))."""
+    byte_transpose) when the device emits the wire layout directly
+    (turbo.encode_step_turbo(wire=True))."""
     cubes, hc = plane.shape
     w32 = hc // 4
     words = jax.lax.bitcast_convert_type(
         plane.reshape(cubes, w32, 4), jnp.int32
     )  # (cubes, w32): word k of row c = plane bytes [c, 4k:4k+4], LE
-    if use_pallas:
-        # Mosaic wants the transposed block's lane dim %128 (and the input
-        # block's sublane dim %8): pad the cube axis to 128 alignment, tile
-        # in 512-cube blocks, slice the pad back off after the byte peel.
-        # The peel runs IN the kernel (_wire_peel_kernel): emitting the
-        # byte-interleaved uint8 rows directly skips the 16.6 MB/GOP
-        # row-interleave stack XLA executes as a layout copy.
-        cp = -(-cubes // 128) * 128
-        if cp != cubes:
-            words = jnp.pad(words, ((0, cp - cubes), (0, 0)))
-        blk = 512 if cp % 512 == 0 else 128
-        vma = jax.typeof(plane).vma
-        wire = pl.pallas_call(
-            _wire_peel_kernel,
-            grid=(cp // blk,),
-            in_specs=[pl.BlockSpec((blk, w32), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec((hc, blk), lambda i: (0, i),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((hc, cp), jnp.uint8, vma=vma),
-            interpret=interpret,
-        )(words)
-        return wire[:, :cubes]
     wt = words.T  # (w32, cubes)
     parts = [((wt >> (8 * b)) & 0xFF).astype(jnp.uint8) for b in range(4)]
-    return jnp.stack(parts, axis=1).reshape(hc, -1)[:, :cubes]
+    return jnp.stack(parts, axis=1).reshape(hc, cubes)
 
 
-@functools.partial(jax.jit, static_argnames=("use_pallas", "interpret"))
-def wire_words(wire, use_pallas: bool = True, interpret: bool = False):
+@jax.jit
+def wire_words(wire):
     """(hc, cubes) uint8 wire layout -> (cubes, hc/4) i32 WORD rows ON
     DEVICE: word j of cube row c packs plane bytes 4j..4j+3 LE — the word
     transpose half of plane_to_wire run backwards, stopping BEFORE the
     byte peel.
 
     The decode step consumes these words directly (elementwise nibble
-    shifts + the exact one-hot pair unscramble, codec/transform.py):
-    materializing the byte-order plane from the bitcast costs ~1.6 ms/GOP
-    per nibble half at 1080p in XLA layout copies
-    (tools/profile_decode_stages.py round 4), the words cost nothing."""
+    shifts + the exact one-hot pair unscramble, codec/transform.py), so
+    the byte-order plane never materializes."""
     hc, cubes = wire.shape
     w32 = hc // 4
     w4 = wire.reshape(w32, 4, cubes).astype(jnp.int32)
     words = (w4[:, 0] | (w4[:, 1] << 8) | (w4[:, 2] << 16)
              | (w4[:, 3] << 24))  # (w32, cubes), LE — plane_to_wire's words
-    if use_pallas:
-        cp = -(-cubes // 128) * 128
-        if cp != cubes:
-            words = jnp.pad(words, ((0, 0), (0, cp - cubes)))
-        blk = 512 if cp % 512 == 0 else 128
-        vma = jax.typeof(wire).vma
-        wt = pl.pallas_call(
-            _wire_kernel,
-            grid=(cp // blk,),
-            in_specs=[pl.BlockSpec((w32, blk), lambda i: (0, i),
-                                   memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec((blk, w32), lambda i: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((cp, w32), jnp.int32, vma=vma),
-            interpret=interpret,
-        )(words)[:cubes]
-    else:
-        wt = words.T  # (cubes, w32)
-    return wt
+    return words.T  # (cubes, w32)
 
 
-@functools.partial(jax.jit, static_argnames=("use_pallas", "interpret"))
-def wire_to_plane(wire, use_pallas: bool = True, interpret: bool = False):
+@jax.jit
+def wire_to_plane(wire):
     """(hc, cubes) uint8 wire layout -> (cubes, hc) uint8 transport nibble
     plane ON DEVICE — the exact inverse of plane_to_wire, by the same word
     trick run backwards: pack wire rows 4k..4k+3 into i32 word rows with
     elementwise shifts, 2-D word transpose, bitcast the words back to 4
     plane bytes each.
 
-    Kept for layout tests and host-side tooling; the decode step itself
-    consumes wire_words (the bitcast back to byte order here is where the
-    ~3.2 ms/GOP of layout copies came from)."""
+    Kept for layout tests; the decode step itself consumes wire_words."""
     hc, cubes = wire.shape
-    wt = wire_words(wire, use_pallas=use_pallas, interpret=interpret)
+    wt = wire_words(wire)
     return jax.lax.bitcast_convert_type(wt, jnp.uint8).reshape(cubes, hc)
 
 
@@ -204,8 +107,7 @@ def pair_unscramble(cube_size: int = 512) -> np.ndarray:
     Applied as an exact one-hot matmul (integers below 2^24 are exact in
     f32 products with 0/1, and each output column has a single nonzero
     term), so the downstream dequant matmul sees operands BIT-IDENTICAL
-    to the flat-plane path — the same trick unscramble_matrix plays for
-    the encode relayout."""
+    to the flat-plane path."""
     hw = cube_size // 2  # pairs per cube
     p = np.arange(hw)
     m = np.zeros((hw, hw), np.float32)
@@ -213,86 +115,31 @@ def pair_unscramble(cube_size: int = 512) -> np.ndarray:
     return m
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def frames_to_cubes_perm(frames, interpret: bool = False):
-    """(T, H, W) uint8 -> (T/8 * H/8 * W/8, 512) uint8, sigma-permuted
-    columns, cube rows in bitstream order (GOP-major, block-row, column).
-
-    T may span several GOPs; each 8-frame GOP relayouts independently
-    (matching frames_to_cubes' GOP-major cube order)."""
-    t, h, w = frames.shape
-    nbh, nbw, w32 = h // 8, w // 8, w // 4
-    gops = t // 8
-    x32 = jax.lax.bitcast_convert_type(
-        frames.reshape(gops, 8, h, w32, 4), jnp.int32
-    )
-    vma = jax.typeof(frames).vma
-    out = pl.pallas_call(
-        _kernel,
-        grid=(gops, nbh),
-        in_specs=[pl.BlockSpec((1, 8, 8, w32), lambda g, i: (g, 0, i, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, 2 * nbw, 64), lambda g, i: (g, i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((gops, nbh * 2 * nbw, 64), jnp.int32,
-                                       vma=vma),
-        interpret=interpret,
-    )(x32)
-    by = jax.lax.bitcast_convert_type(
-        out.reshape(gops * nbh * nbw, 128), jnp.uint8
-    )
-    return by.reshape(-1, 512)
-
-
 def inv_sigma(cube_size: int = 512) -> np.ndarray:
     """inv with sigma()[inv[j]] = j: perm[:, j] == cube byte inv[j], so a
     decode matmul whose COLUMNS are permuted by inv emits pixels directly
-    in the kernel's permuted layout (same dot products, just reordered
+    in the permuted layout (same dot products, just reordered
     outputs — bit-exact)."""
     return np.argsort(sigma(cube_size))
 
 
-@functools.partial(
-    jax.jit, static_argnames=("height", "width", "use_pallas", "interpret")
-)
-def cubes_perm_to_frames(perm, *, height: int, width: int,
-                         use_pallas: bool = True,
-                         interpret: bool = False):
-    """(num_cubes, 512) uint8 cubes in the kernel's sigma-PERMUTED column
-    order -> (T, H, W) uint8 frames: the exact inverse of
-    frames_to_cubes_perm (same word-transpose blocks, run backwards).
+@functools.partial(jax.jit, static_argnames=("height", "width"))
+def cubes_perm_to_frames(perm, *, height: int, width: int):
+    """(num_cubes, 512) uint8 cubes in the sigma-PERMUTED column order ->
+    (T, H, W) uint8 frames by per-block i32 word transposes.
 
     The decode matmul emits the permuted order for free (column-permuted
-    decode matrices, inv_sigma), so this replaces the XLA 6-axis
-    cubes_to_frames transpose (~1.7 ms of the 2.55 ms 1080p decode step —
-    measured via the planar4 stage bisect) with the same ~0.5 ms Pallas
-    relayout the encode side uses.  use_pallas=False runs the identical
-    per-block i32 word transposes through XLA (bit-identical; the CPU
-    suite exercises the production perm composition through it)."""
+    decode matrices, inv_sigma), so this replaces framing.cubes_to_frames'
+    6-axis uint8 transpose with word-granular moves."""
     num_cubes = perm.shape[0]
     nbh, nbw, w32 = height // 8, width // 8, width // 4
     gops = num_cubes // (nbh * nbw)
     words = jax.lax.bitcast_convert_type(
         perm.reshape(num_cubes, 128, 4), jnp.int32
     ).reshape(gops, nbh * w32, 64)
-    if use_pallas:
-        vma = jax.typeof(perm).vma
-        x32 = pl.pallas_call(
-            _inv_kernel,
-            grid=(gops, nbh),
-            in_specs=[pl.BlockSpec((1, w32, 64), lambda g, i: (g, i, 0),
-                                   memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec((1, 8, 8, w32), lambda g, i: (g, 0, i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct(
-                (gops, 8, nbh * 8, w32), jnp.int32, vma=vma
-            ),
-            interpret=interpret,
-        )(words)
-    else:
-        blk = jnp.swapaxes(words.reshape(gops, nbh, w32, 64), 2, 3)
-        x32 = jnp.swapaxes(
-            blk.reshape(gops, nbh, 8, 8, w32), 1, 2
-        ).reshape(gops, 8, nbh * 8, w32)
+    blk = jnp.swapaxes(words.reshape(gops, nbh, w32, 64), 2, 3)
+    x32 = jnp.swapaxes(
+        blk.reshape(gops, nbh, 8, 8, w32), 1, 2
+    ).reshape(gops, 8, nbh * 8, w32)
     by = jax.lax.bitcast_convert_type(x32, jnp.uint8)
     return by.reshape(gops * 8, height, width)

@@ -7,9 +7,9 @@ comment Encoder.java:96-97).  Within a plane the order is y outer, z middle,
 x inner.  Bitstream compatibility requires this exact order, so the golden
 tests in tests/test_zigzag.py pin it down.
 
-On TPU the ordering is a constant 512-entry permutation.  It is never applied
-as a gather at runtime: the permutation is folded into the rows/columns of the
-encode/decode matrices (see ops/dct.py), making it free.
+On the device the ordering is a constant 512-entry permutation.  It is never
+applied as a gather at runtime: the permutation is folded into the
+rows/columns of the encode/decode matrices (see ops/dct.py), making it free.
 """
 
 from __future__ import annotations

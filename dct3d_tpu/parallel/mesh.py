@@ -26,8 +26,8 @@ def make_mesh(
     """Build a (gop, tile) mesh over the available devices.
 
     Defaults to all devices on the GOP axis (the embarrassingly parallel
-    one, so it scales across hosts over DCN; the tile axis should stay
-    within an ICI-connected slice).
+    one, so it scales across hosts; the tile axis should stay within one
+    host's cards).
     """
     devices = devices if devices is not None else jax.devices()
     n = len(devices)

@@ -1,24 +1,24 @@
-"""Multi-host (DCN) scale-out: distributed ingest + ordered bitstream gather.
+"""Multi-host scale-out: distributed ingest + ordered bitstream gather.
 
 The reference is single-process/single-device (SURVEY.md §2.4); this module
-is the framework's DCN layer.  Design (SURVEY.md §5 "Distributed
+is the framework's layer across hosts.  Design (SURVEY.md §5 "Distributed
 communication backend", BASELINE.md scaling target):
 
   * each host process reads only ITS temporal span of the input video
     (GOP-major split — GOPs are embarrassingly parallel, encoder.c:203-278),
   * the per-host frame arrays are assembled into one global sharded array
     with ``jax.make_array_from_process_local_data`` (no frame ever crosses
-    DCN),
+    the network between hosts),
   * the fused encode step runs under the same (gop, tile) shard_map as the
     single-host path — the only cross-shard traffic is the per-shard bit
-    count all-gather (scalars over ICI/DCN),
+    count all-gather (scalars),
   * each host deflates ITS shards' phase-aligned bytes locally, then the
     variable-length compressed chunks are gathered to process 0 in stream
     order (one ``process_allgather`` of lengths + one of padded payloads),
-    which splices and writes.  Only compressed bytes cross DCN, once.
+    which splices and writes.  Only compressed bytes cross hosts, once.
 
 With a single process this degrades to the ShardedEncoder path exactly and
-is tested that way (a real pod run needs ``jax.distributed.initialize``,
+is tested that way (a real multi-host run needs ``jax.distributed.initialize``,
 which cannot be simulated in-process; the per-host logic below is pure
 functions of (process_index, process_count) and is unit-tested with fakes).
 """
@@ -35,7 +35,12 @@ from ..config import CodecConfig
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Bring up the JAX distributed runtime (DCN).  No-op if single-host."""
+    """Bring up the JAX distributed runtime.  No-op if single-host.
+
+    Each process sees every local GPU by default, so this suits one
+    process per host.  Several processes on one machine (one per card)
+    also need ``local_device_ids`` passed to ``jax.distributed.initialize``
+    (and a memory share each), which this wrapper does not set."""
     import jax
 
     if num_processes in (None, 1):
@@ -196,7 +201,7 @@ def gather_ordered_bytes(local_container: bytes) -> bytes | None:
 
     Returns the concatenated container on process 0, None elsewhere.  Uses
     two all-gathers (lengths, then padded payload) — the standard
-    variable-length gather over DCN.
+    variable-length gather across hosts.
     """
     import jax
 
@@ -257,7 +262,8 @@ def encode_local_members(
     turbo: bool = False,
 ) -> bytes:
     """This host's member-framed container fragment for its frame span —
-    the per-host half of encode_multihost (pure local compute, no DCN).
+    the per-host half of encode_multihost (pure local compute, no
+    cross-host traffic).
     Exposed so measurement/simulation tools can separate local encode cost
     from the ordered gather."""
     from ..codec.encoder import StreamingEncoder

@@ -8,7 +8,7 @@ then block-row — codec/framing.py), and shards own *contiguous* runs of
 cubes in exactly mesh-rank order, so concatenation is the only coupling.
 
 The serial-concatenation problem is solved on device: each shard all-gathers
-the per-shard bit counts (one scalar per device, rides ICI), computes its
+the per-shard bit counts (one scalar per device), computes its
 global start offset by exclusive scan, and packs its codewords already
 *phase-aligned* to its global bit position.  Host assembly then only
 byte-splices buffers and ORs the single overlapping boundary byte per shard
@@ -23,10 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..config import CodecConfig
 from ..codec import entropy, framing
@@ -39,14 +36,14 @@ def _encode_shard(frames, enc_t, carry_bits, *, cfg, max_bytes, mesh_shape,
                   tight=True, pack_bits=None):
     """Per-device body: transform, codewords, offset-aligned bit pack."""
     n_tile = mesh_shape[1]
-    cubes = framing.frames_to_cubes(frames, cfg).astype(enc_t.dtype)
+    cubes = framing.frames_to_cubes(frames, cfg)
     # Same quantizer as the single-device path (incl. the exact-DC fix) —
     # anything else would break sharded-vs-single byte identity.
     q = _quantize(cubes, enc_t, cfg)
     code, width = expgolomb.codewords(q.reshape(-1))
 
     local_bits = jnp.sum(width, dtype=jnp.int32)
-    # One scalar per shard over ICI; exclusive scan -> global start bit.
+    # One scalar per shard; exclusive scan -> global start bit.
     all_bits = jax.lax.all_gather(
         local_bits, (GOP_AXIS, TILE_AXIS), tiled=False
     ).reshape(-1)

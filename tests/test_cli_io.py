@@ -278,7 +278,7 @@ def test_cli_pipe_roundtrip(tmp_path, monkeypatch):
 class _OnDemand:
     """Raw-frame pipe that materializes bytes only when read: a read()
     with no size argument (i.e. whole-pipe buffering) fails the test, so
-    this pins the constant-RSS contract of `encode -` (VERDICT r2 #3;
+    this pins the constant-RSS contract of `encode -` (
     the C encoder streams through a fixed buffer, encoder.c:203-278)."""
 
     def __init__(self, nbytes: int, chunk: int = 1 << 16):
@@ -412,7 +412,7 @@ def test_cli_pack_bits_is_byte_neutral(tmp_path):
 def test_cli_stdin_pad_streams_constant_rss(tmp_path, monkeypatch):
     """`encode - ... --pad` pads per batch — bounded reads (the _OnDemand
     pipe fails on any unbounded read), output byte-identical to the
-    file-input padded encode (VERDICT r3 #7)."""
+    file-input padded encode."""
     w, h = 30, 21  # not block multiples -> pads to 32x24
     fsz = w * h
     total = 17 * fsz  # trims to 16 frames
@@ -437,7 +437,7 @@ def test_cli_stdin_index_streams_constant_rss(tmp_path, monkeypatch):
     """`encode - out.d3i ... --index` streams the pipe (bounded reads) and
     patches the member header's frame count + length at finish: the
     container must be byte-identical to the file-input indexed encode and
-    decode with NO frame count (VERDICT r3 #7)."""
+    decode with NO frame count."""
     w = h = 32
     fsz = w * h
     total = 24 * fsz

@@ -245,25 +245,22 @@ def test_planar_decode_matches_plain(rng):
 
 
 @pytest.mark.parametrize("n", [100, 70_000, 300_000])
-def test_pallas_splice_matches_xla(rng, n):
-    """The Pallas splice kernel (interpret mode on CPU) and the XLA gather
-    formulation produce identical packed bytes, including multi-cell grids
-    and cross-cell boundary words."""
+def test_pack_bits_matches_numpy(rng, n):
+    """The XLA level-2 row-gather assembly produces the NumPy twin's bytes,
+    tail byte and bit count, across multi-row buffers and group boundary
+    words."""
     from dct3d_tpu.ops import bitpack, expgolomb
 
     vals = rng.integers(-300, 300, n).astype(np.int32)
     code, width = expgolomb.codewords_np(vals)
     out_bytes = int(width.sum()) // 8 + 8
-    a, bits_a, tail_a, _ = jax.jit(
-        lambda c, w: bitpack.pack_bits(c, w, out_bytes, impl="xla")
+    ref, ref_bits = bitpack.pack_bits_np(code, width, out_bytes)
+    got, bits, tail, ovf = jax.jit(
+        lambda c, w: bitpack.pack_bits(c, w, out_bytes)
     )(code, width)
-    b, bits_b, tail_b, _ = jax.jit(
-        lambda c, w: bitpack.pack_bits(c, w, out_bytes, impl="pallas_interpret")
-    )(code, width)
-    assert int(bits_a) == int(bits_b)
-    assert int(tail_a) == int(tail_b)
-    nbytes = int(bits_a) // 8  # last partial byte is caller-managed
-    np.testing.assert_array_equal(np.asarray(a)[:nbytes], np.asarray(b)[:nbytes])
+    assert int(bits) == ref_bits and not bool(ovf)
+    assert int(tail) == int(ref[(ref_bits - 1) // 8])
+    np.testing.assert_array_equal(np.asarray(got), ref)
 
 
 def test_planar4_decode_reconstructs(rng):
@@ -374,30 +371,31 @@ def test_scan_values_matches_decode_positions(rng):
         entropy.scan_values(payload, vals.size + 1)
 
 
-def test_group_pack_pallas_matches_einsum(rng):
-    """The Pallas level-1 kernel (interpret mode on CPU) is byte-exact vs
-    the einsum formulation, across phases, wide codewords, and zero pads."""
+@pytest.mark.parametrize("w_words", [34, None])
+def test_pack_values_matches_numpy_at_budget_and_worst_case(rng, w_words):
+    """pack_values is byte-exact vs the NumPy twin at the budget width and
+    at the worst-case width, with a partial-byte carry and wide
+    codewords."""
     from dct3d_tpu.ops import bitpack
-    from dct3d_tpu.ops.group_pack import GB, group_pack_pallas
 
-    g_count, group, w = GB + 3, 256, 34
-    wid = rng.integers(1, 5, (g_count, group)).astype(np.int32)
-    hot = rng.random((g_count, group)) < 0.02
-    wid[hot] = rng.integers(15, 28, hot.sum())
-    wid[-1, 100:] = 0  # trailing zero-width pad slots
-    code = rng.integers(0, 1 << 32, (g_count, group), dtype=np.uint64).astype(
-        np.uint32
-    )
-    code[wid == 0] = 0
-    phase = rng.integers(0, 32, g_count).astype(np.int32)
-    want = jax.jit(bitpack._group_pack_einsum, static_argnums=3)(
-        code, wid, phase, w
-    )
-    got = group_pack_pallas(
-        jnp.asarray(code), jnp.asarray(wid), jnp.asarray(phase), w,
-        interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    g_count = 13
+    vals = rng.integers(-2, 3, g_count * 256).astype(np.int32)
+    hot = rng.random(vals.size) < 0.01
+    vals[hot] = rng.integers(-5771, 5772, hot.sum())
+    code, width = expgolomb.codewords_np(vals)
+    code = np.concatenate([[np.uint32(5)], code])
+    width = np.concatenate([[np.int32(3)], width.astype(np.int32)])
+    out_bytes = (int(width.sum()) + 7) // 8 + 5
+    ref, ref_bits = bitpack.pack_bits_np(code, width, out_bytes)
+    got, bits, tail, ovf = jax.jit(
+        lambda v: bitpack.pack_values(
+            v, jnp.uint32(5), jnp.int32(3), out_bytes, max_width=29,
+            w_words=w_words,
+        )
+    )(vals)
+    assert int(bits) == ref_bits and not bool(ovf)
+    assert int(tail) == int(ref[(ref_bits - 1) // 8])
+    np.testing.assert_array_equal(np.asarray(got), ref)
 
 
 @pytest.mark.parametrize("carry_bits", [0, 3, 7, 31])
@@ -429,8 +427,8 @@ def test_pack_values_matches_pack_bits(rng, carry_bits):
 def test_pack_oversized_buffer_tail(rng):
     """A budget-sized buffer much larger than the content: the all-beyond-
     stream tail must come back deterministically zero (tail rows clamp
-    their gather base to row 0 — see the negative-result note in
-    ops/bitpack._place) and bytes identical to the NumPy oracle."""
+    their gather base to row 0 in ops/bitpack._place) and bytes identical
+    to the NumPy oracle."""
     vals = rng.integers(-40, 41, 2048).astype(np.int32)
     code, width = expgolomb.codewords_np(vals)
     content_bytes = (int(width.sum()) + 7) // 8
@@ -451,39 +449,29 @@ def test_pack_oversized_buffer_tail(rng):
     np.testing.assert_array_equal(np.asarray(got2), ref)
 
 
-def test_group_pack_values_pallas_matches_einsum(rng):
-    """The values-input Pallas kernel (interpret mode) derives codewords in
-    VMEM byte-exactly vs codewords() + the einsum pack."""
+def test_group_pack_einsum_matches_numpy(rng):
+    """The level-1 einsum's words for each group equal the NumPy twin's
+    pack of that group alone, led by `phase` zero bits — wide codewords,
+    varied phases, zero-width pads."""
     from dct3d_tpu.ops import bitpack
-    from dct3d_tpu.ops.group_pack import GB, group_pack_values_pallas
 
-    g_count, group, w = GB + 5, 256, 34
-    vals = rng.integers(-6, 7, (g_count, group)).astype(np.int32)
-    hot = rng.random((g_count, group)) < 0.02
+    g_count, group, w = 11, 256, 34
+    vals = rng.integers(-2, 3, (g_count, group)).astype(np.int32)
+    hot = rng.random((g_count, group)) < 0.01
     vals[hot] = rng.integers(-5771, 5772, hot.sum())
-    phase = rng.integers(0, 32, g_count).astype(np.int32)
     code, wid = expgolomb.codewords_np(vals.reshape(-1))
-    want = jax.jit(bitpack._group_pack_einsum, static_argnums=3)(
-        code.reshape(g_count, group), wid.astype(np.int32).reshape(g_count, group),
-        phase, w,
-    )
-    got = group_pack_values_pallas(
-        jnp.asarray(vals), jnp.asarray(phase), w, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    # with_lastw: the buffer is unchanged and the extra column equals the
-    # XLA one-hot select of each group's last occupied word (the dense
-    # premerge boundary _place would otherwise recompute).
-    buf2, lastw = group_pack_values_pallas(
-        jnp.asarray(vals), jnp.asarray(phase), w, interpret=True,
-        with_lastw=True,
-    )
-    np.testing.assert_array_equal(np.asarray(buf2), np.asarray(want))
-    gbits = wid.astype(np.int64).reshape(g_count, group).sum(axis=1)
-    endw = np.clip((phase + gbits - 1) >> 5, 0, w - 1)
-    want_last = np.asarray(want)[np.arange(g_count), endw]
-    np.testing.assert_array_equal(np.asarray(lastw), want_last)
+    code = code.reshape(g_count, group).astype(np.uint32)
+    wid = wid.astype(np.int32).reshape(g_count, group)
+    wid[-1, 100:] = 0  # trailing zero-width pad slots
+    code[wid == 0] = 0
+    phase = (np.arange(g_count) * 7 % 32).astype(np.int32)
+    got = np.asarray(jax.jit(bitpack._group_pack_einsum, static_argnums=3)(
+        code, wid, phase, w))
+    for g in range(g_count):
+        ref, _ = bitpack.pack_bits_np(
+            np.concatenate([[np.uint32(0)], code[g]]),
+            np.concatenate([[phase[g]], wid[g]]), 4 * w)
+        np.testing.assert_array_equal(got[g], ref.view(">u4"))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -1,5 +1,5 @@
 """CLI/API feature-matrix on a device mesh: --rgb, --checkpoint-every, and
---turbo --checkpoint-every all compose with --mesh (VERDICT r2 item 4).
+--turbo --checkpoint-every all compose with --mesh.
 
 Every sharded encoder is byte-identical to its single-device counterpart
 (parallel/sharding.py invariant), so each combination is pinned by literal
@@ -124,7 +124,7 @@ def test_checkpoint_mesh_push_alignment_error(tmp_path, mesh21):
 
 
 def test_cli_mesh_matrix(tmp_path, capsys):
-    """The CLI combinations VERDICT r2 flagged as rejected now round-trip,
+    """The CLI combinations once rejected with --mesh now round-trip,
     and the containers equal their single-device twins byte-for-byte."""
     from dct3d_tpu import cli
     from dct3d_tpu.io import rawvideo

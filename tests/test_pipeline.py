@@ -81,7 +81,7 @@ def test_near_lossless_when_quant_disabled(clip):
 
 
 def test_device_stream_matches_oracle_bytes(clip):
-    """Full bitstream byte parity: TPU pipeline vs float64 oracle encoder.
+    """Full bitstream byte parity: device pipeline vs float64 oracle encoder.
 
     Coefficient parity is not bit-guaranteed (float32 vs float64), so build
     the oracle stream FROM the device-quantized ints and require exact byte
@@ -173,8 +173,8 @@ def test_stream_budget_overflow_retries(clip):
 
 
 def test_stream_budget_default_derivation():
-    # 2 bits/value: +12% measured encode-step speed vs 3 at identical
-    # bytes (tools/ab_stream_budget.py; typical content is ~1.2).
+    # 2 bits/value: a tighter static buffer at identical bytes (typical
+    # content is ~1.2).
     assert CodecConfig().stream_budget_bits_per_value == 2
     # Near-lossless streams genuinely run wide: fall back to the group budget.
     assert CodecConfig(quant_strength=0).stream_budget_bits_per_value == 4
@@ -387,6 +387,169 @@ def test_exact_dc_quant_arithmetic():
                     .to_integral_value(rounding=decimal.ROUND_FLOOR)
                 )
                 assert g == want, (cube, bias, s, g, want)
+
+
+@pytest.mark.parametrize("x,bias,want", [
+    (1.4999999999999998, 0.5, 2),   # a tie float64 landed just below
+    (-2.5000000000000004, 0.5, -3),
+    (2.5, 0.5, 3),
+    (1.4999, 0.5, 1),
+    (-0.49, 0.5, 0),
+    (0.6 - 1e-12, 0.4, 1),          # deadzone: the boundary is frac 0.6
+    (0.6 + 1e-12, 0.4, 1),
+    (-0.6 + 1e-12, 0.4, -1),
+    (0.5999, 0.4, 0),
+    (0.5 + 1e-12, 0.4, 0),
+])
+def test_device_round_half_away(x, bias, want):
+    import jax
+
+    with jax.enable_x64(True):
+        got = transform.round_half_away(jnp.asarray(x, jnp.float64), bias,
+                                        1e-9)
+    assert int(got) == want
+
+
+@pytest.mark.parametrize("x,bias,want", [
+    (2.5, 0.5, 3), (-2.5, 0.5, -3), (1.4999, 0.5, 1), (-0.4999, 0.5, 0),
+    (0.6, 0.4, 1), (0.59, 0.4, 0), (-0.61, 0.4, -1),
+])
+def test_oracle_round_half_away(x, bias, want):
+    assert oracle._round_half_away(np.float64(x), bias) == want
+
+
+# Uniform-noise 8x8x8 cubes, each with one coefficient exactly on a .5
+# rounding boundary that a float64 product lands just below:
+# (cube pixels, natural frequency kz*64 + ky*8 + kx).
+_TIE_CUBES = [
+    ("uxdaDNG0OnaguLjbHhL2Jjc4Yv9qoVVcfF4KWfN/RB71FTjGwUvlKvEyNw0M2LjZODbHqyE"
+     "J3aFRUxuDZY4/sSarMsHEZwt9E44wZ6sCPk0Gnu2SIMHkz031c4gj1G2xa+y9CaDVUhNqV"
+     "b890Ok9Wk3Cr6FtWZhVkQOKd8NMbKGUzJ04RgGIGDnZkgmNK2Rggt3DE3Ni/3g7SPLXq9O"
+     "Tdy4HXLyZZdOm/SvZr1TRL5C5kp/W3DnJMVaHXxa/r5ag8uJaE9ayLb+NRl1JGHc9XVXjd"
+     "veWId+c5xMEZdfjNNvXO3xDVfFtV6oGZEH17QZDk05VIrRW/OfKkl9fZ3WCQNBH4D0x+Hc"
+     "GIOa6E1VRvNK+orzDy6dBL0Sj/d301rtcBjdlRBqlVNEWXPMQ6I/VHfqCTuKFAxX5qBGR0"
+     "RNMkn78CQiQ1j31KMU1/bYTf9SoM+nxf0U+xaGN8sK8mikYpLgGBj1n2sVIP+wH45T+h3d"
+     "LfxjVKVlgNouhzywrpysuPi8u7yQNk3X7aZHBFzLRsMdxiHDPDC8T1IKAx68P/lpX8o0fd"
+     "DKMyLGaB9qkb3C6uxFeKR6yhqXbtCM7YlDLKQG+s6u8EN+E+pGmvUuHGp4LiqUfqA6OISK"
+     "W6zphttegkfRh/EcxL5pOkkX+/9FsGh/C/1hITIHabnFtwOEUOoI=", 144),
+    ("/puHlZSXBdUtj/QjDUYnAG99QdpXBokafVfOv7YcHJFV9JbrSLIg6/x0z3+S9RYfx/0Snse"
+     "U++9szlixf58wGyTkbpD4ZTHoUqqIQfejH6h95zyRxWfXnlI+4Odtl2ZeUbSoGQC4u5DEc"
+     "tcu+O8tZ7/x79B/rWW6MfwHblfHgT73FJSw7xsmNhbZEqa9I6GIfl9eEgEw3Hd7bI5Qkfe"
+     "sPLdVavOQ8IKdEQFANTqKR61g52WXuG8aBIILO4WJx1a3Tdcdnlzq6ds61JkICRPxCxtCi"
+     "9m8fCslwKRRNOsbgSzd2o866tRwSkfTRtcvqeJNf+YH8g5yWBo9leYgL3QTrqvK5dOwcCb"
+     "DBC00S5GOVYHExwMRNaIg61fBQRGylQCms/7ulLRv7fnyfDZQy0IAPnS4JtA8lKiEb9ugb"
+     "64ndil5eN9rIRwtO6z8f2n+hbASAnIb7yUMBy+LOOWEtO/+3mjy0CMbvbWC1F65t9u95EG"
+     "rVPWDshdLt5IS1BwmztPxw8XZ9BtQWJ0uAez5/dVq0ksFfioNTfU+sNo51tGFSuz+J9ytW"
+     "bv2ddi872ITaDVBTP8fIwIO7/9102G4INHLyl6xQeJ3yH8lY1JsmpSPn/7CBzaWs47kwrT"
+     "7QlyvYe6wDfbVpY9SqCKV6/WcRz6KDkdSRR2uk80MOlPx8OzCNSg=", 310),
+]
+
+
+def _coefficient_in_z_t(cube: np.ndarray, k: int) -> list[int]:
+    """64 * the 8x8x8 DCT coefficient k of `cube`, exactly, as integer
+    coordinates over 1, t, ..., t^7 with t = 2cos(pi/16), whose minimal
+    polynomial is t^8 - 8t^6 + 20t^4 - 16t^2 + 2.  4 * s(k) cos(pi (2n+1)
+    k / 16) is the Chebyshev-Dickson polynomial C_m(t) = 2cos(m pi / 16)
+    at m = (2n+1) k, and sqrt(2) = C_4(t) for k = 0."""
+
+    def reduce(p):
+        p = list(p) + [0] * (15 - len(p))
+        for d in range(len(p) - 1, 7, -1):
+            c, p[d] = p[d], 0
+            p[d - 2] += 8 * c
+            p[d - 4] -= 20 * c
+            p[d - 6] += 16 * c
+            p[d - 8] -= 2 * c
+        return p[:8]
+
+    def mul(a, b):
+        out = [0] * 15
+        for i, x in enumerate(a):
+            for j, y in enumerate(b):
+                out[i + j] += x * y
+        return reduce(out)
+
+    t = [0, 1] + [0] * 6
+    cheb = [[2] + [0] * 7, t]  # C_{m+1} = t C_m - C_{m-1}
+    while len(cheb) < 106:
+        cheb.append([a - b for a, b in zip(mul(t, cheb[-1]), cheb[-2])])
+
+    def factor(kk, n):
+        return cheb[4] if kk == 0 else cheb[(2 * n + 1) * kk]
+
+    kz, ky, kx = k // 64, k // 8 % 8, k % 8
+    total = [0] * 8
+    pix = cube.reshape(8, 8, 8)
+    for z in range(8):
+        for y in range(8):
+            zy = mul(factor(kz, z), factor(ky, y))
+            for x in range(8):
+                term = mul(zy, factor(kx, x))
+                total = [s + int(pix[z, y, x]) * v
+                         for s, v in zip(total, term)]
+    return total
+
+
+@pytest.mark.parametrize("case", range(len(_TIE_CUBES)))
+def test_exact_tie_cube_device_matches_oracle(case):
+    """An exact .5 tie that float64 lands below: the oracle decides it
+    exactly (away from zero), the device snaps it the same way, and the
+    parity bytes match."""
+    import base64
+
+    from dct3d_tpu.ops import dct, quant, zigzag
+
+    blob, k = _TIE_CUBES[case]
+    cube = np.frombuffer(base64.b64decode(blob), np.uint8)
+    cfg = CodecConfig()
+    div = int(quant.quant_divisors(8, 8, 8, cfg.quant_strength)[k])
+    # Independent proof of the tie: the coefficient is the rational v0/64,
+    # and v0/(64 div) + 1/2 is an integer.
+    v = _coefficient_in_z_t(cube, k)
+    assert v[1:] == [0] * 7
+    assert (2 * v[0] + 64 * div) % (128 * div) == 0
+    want = (2 * v[0] + 64 * div) // (128 * div)
+    if v[0] < 0:
+        want = -((-2 * v[0] + 64 * div) // (128 * div))
+    # A float64 product lands on the wrong side of the boundary.
+    x = float(cube.astype(np.float64) @ dct._dct3d_dense(8, 8, 8)[k]) / div
+    assert oracle._round_half_away(x) != want
+    assert oracle._exact_quantize(cube[None], np.array([k]), cfg) == [want]
+    zz = int(np.argsort(zigzag.zigzag_flat_indices(8, 8, 8))[k])
+    frames = cube.reshape(8, 8, 8)
+    stats = {}
+    q_ora = oracle.quantized_coefficients(frames, cfg, stats)
+    assert q_ora[0, zz] == want and stats["ties"] == 1
+    ctx = transform.TransformContext(cfg)
+    q_dev = np.asarray(
+        transform.quantize_step(jnp.asarray(frames), ctx.enc_t, cfg=cfg))
+    np.testing.assert_array_equal(q_dev, q_ora)
+    assert encode_video(frames, cfg) == oracle.encode(frames, cfg)
+
+
+@pytest.mark.parametrize("dims,bias", [((8, 8, 8), 0.5), ((8, 8, 8), 0.4),
+                                       ((4, 4, 4), 0.5)])
+def test_oracle_exact_quantize_off_boundary(dims, bias):
+    """The oracle's exact evaluation agrees with float64 rounding wherever
+    float64 is far from a boundary: random cubes, every frequency, both
+    signs."""
+    w, h, d = dims
+    cfg = CodecConfig(block_w=w, block_h=h, block_d=d, quant_bias=bias)
+    rng = np.random.default_rng(5)
+    cube = w * h * d
+    pix = rng.integers(0, 256, (64, cube)).astype(np.float64)
+    freq = rng.integers(0, cube, 64)
+    from dct3d_tpu.ops import dct, quant
+
+    div = quant.quant_divisors(w, h, d, cfg.quant_strength)
+    x = np.einsum("mn,mn->m", pix, dct._dct3d_dense(w, h, d)[freq]) / div[freq]
+    t = np.abs(x) + bias
+    far = np.abs(t - np.rint(t)) > 1e-6
+    stats = {}
+    got = oracle._exact_quantize(pix[far], freq[far], cfg, stats)
+    np.testing.assert_array_equal(got, oracle._round_half_away(x[far], bias))
+    assert stats["ties"] == 0 and stats["checked"] == far.sum()
+    assert (got < 0).any() and (got > 0).any()
 
 
 def test_noisy_stream_widens_after_repeated_retries(rng):

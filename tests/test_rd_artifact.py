@@ -2,7 +2,7 @@
 
 Pins BASELINE.md's "turbo rides at or below the reference profile's rate
 at every operating point" claim to a checked-in, regenerable artifact
-instead of prose.  Regenerate on a TPU host with:
+instead of prose.  Regenerate with:
 
     python -m dct3d_tpu sweep synthetic 320 240 32 \
         --quants 1,2,5,8,12 --blocks 8,4 --turbo \

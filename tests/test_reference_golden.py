@@ -120,7 +120,7 @@ def test_reference_writer_byte_parity(reflib, rng):
 def test_reference_reader_reads_device_packed_stream(reflib, rng):
     """The reference's own C reader decodes our production bitstream.
 
-    Full pipeline witness: frames -> device (CPU-jax) encode with the TPU
+    Full pipeline witness: frames -> device (CPU-jax) encode with the device
     bit-packer -> zlib inflate -> reference expGolomb_readValue -> compare
     with independently computed quantized coefficients."""
     import zlib

@@ -1,13 +1,15 @@
-"""The Pallas permuted relayout + exact MXU unscramble vs frames_to_cubes.
+"""The word-transpose relayouts (ops/relayout.py) vs plain byte moves.
 
-The encode transform's TPU fast path (transform._encode_core) relies on
-perm @ P being BIT-identical to the XLA cube transpose; these pin that in
-interpret mode on CPU (the kernel itself compiles only for TPU)."""
+The permuted decode path (transform._perm_decode) relies on
+cubes_perm_to_frames being BIT-identical to framing.cubes_to_frames on
+sigma-permuted columns, and the turbo wire path on plane_to_wire /
+wire_words being the plain byte transpose; these pin both against NumPy."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from dct3d_tpu import oracle
 from dct3d_tpu.codec import framing
 from dct3d_tpu.config import CodecConfig
 from dct3d_tpu.ops import relayout
@@ -19,26 +21,18 @@ def rng():
 
 
 @pytest.mark.parametrize("t,h,w", [(8, 32, 64), (16, 24, 40)])
-def test_perm_relayout_matches_frames_to_cubes(rng, t, h, w):
+def test_perm_relayout_matches_cubes_to_frames(rng, t, h, w):
+    """Arbitrary cube bytes in sigma-permuted column order come back as
+    the frames framing.cubes_to_frames builds from the natural order."""
     cfg = CodecConfig()
     assert relayout.supports(cfg, h, w)
-    frames = rng.integers(0, 256, (t, h, w), dtype=np.uint8)
-    ref = np.asarray(framing.frames_to_cubes(jnp.asarray(frames), cfg))
-
-    perm = relayout.frames_to_cubes_perm(jnp.asarray(frames), interpret=True)
+    cubes = rng.integers(0, 256, (t * h * w // 512, 512), dtype=np.uint8)
+    want = np.asarray(framing.cubes_to_frames(jnp.asarray(cubes), cfg, h, w))
+    perm = cubes[:, relayout.inv_sigma()]
     # sigma-permuted columns: perm[:, sigma[c]] == cube byte c
-    np.testing.assert_array_equal(
-        np.asarray(perm)[:, relayout.sigma()], ref
-    )
-    # the one-hot bf16 unscramble restores exact order bit-for-bit
-    cubes = jnp.dot(
-        jnp.asarray(perm).astype(jnp.bfloat16),
-        relayout.unscramble_matrix(),
-        preferred_element_type=jnp.float32,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(cubes), ref.astype(np.float32)
-    )
+    np.testing.assert_array_equal(perm[:, relayout.sigma()], cubes)
+    got = relayout.cubes_perm_to_frames(jnp.asarray(perm), height=h, width=w)
+    np.testing.assert_array_equal(np.asarray(got), want)
 
 
 def test_supports_gates_geometry():
@@ -51,19 +45,12 @@ def test_supports_gates_geometry():
 
 @pytest.mark.parametrize("cubes", [32, 128, 1296])
 def test_plane_to_wire_is_the_byte_transpose(rng, cubes):
-    """Both lowerings (XLA word transpose, Pallas block kernel in interpret
-    mode) equal the plain numpy byte transpose of the transport plane."""
+    """The word transpose + byte peel equals the plain numpy byte
+    transpose of the transport plane."""
     hc = 256
     plane = rng.integers(0, 256, (cubes, hc), dtype=np.uint8)
-    want = plane.T
-    got_xla = np.asarray(
-        relayout.plane_to_wire(jnp.asarray(plane), use_pallas=False)
-    )
-    np.testing.assert_array_equal(got_xla, want)
-    got_pl = np.asarray(
-        relayout.plane_to_wire(jnp.asarray(plane), interpret=True)
-    )
-    np.testing.assert_array_equal(got_pl, want)
+    got = np.asarray(relayout.plane_to_wire(jnp.asarray(plane)))
+    np.testing.assert_array_equal(got, plane.T)
 
 
 @pytest.mark.parametrize("cubes", [32, 1296])
@@ -71,31 +58,30 @@ def test_wire_to_plane_inverts_plane_to_wire(rng, cubes):
     hc = 256
     plane = rng.integers(0, 256, (cubes, hc), dtype=np.uint8)
     wire = jnp.asarray(plane.T)
-    got_xla = np.asarray(relayout.wire_to_plane(wire, use_pallas=False))
-    np.testing.assert_array_equal(got_xla, plane)
-    got_pl = np.asarray(relayout.wire_to_plane(wire, interpret=True))
-    np.testing.assert_array_equal(got_pl, plane)
+    np.testing.assert_array_equal(np.asarray(relayout.wire_to_plane(wire)),
+                                  plane)
+    # wire_words: word j of cube row c packs plane bytes 4j..4j+3 LE
+    words = np.asarray(relayout.wire_words(wire))
+    np.testing.assert_array_equal(words, plane.view("<i4"))
 
 
 @pytest.mark.parametrize("t,h,w", [(8, 32, 64), (16, 24, 40)])
 def test_cubes_perm_to_frames_inverts_forward(rng, t, h, w):
+    """Frames -> the oracle's cube enumeration -> sigma-permuted columns
+    -> cubes_perm_to_frames is the identity."""
+    cfg = CodecConfig()
     frames = rng.integers(0, 256, (t, h, w), dtype=np.uint8)
-    perm = relayout.frames_to_cubes_perm(jnp.asarray(frames), interpret=True)
-    back = relayout.cubes_perm_to_frames(
-        perm, height=h, width=w, interpret=True
-    )
+    cubes = oracle._cubes(frames, cfg).astype(np.uint8)
+    perm = cubes[:, relayout.inv_sigma()]
+    back = relayout.cubes_perm_to_frames(jnp.asarray(perm), height=h, width=w)
     np.testing.assert_array_equal(np.asarray(back), frames)
-    xla = relayout.cubes_perm_to_frames(
-        perm, height=h, width=w, use_pallas=False
-    )
-    np.testing.assert_array_equal(np.asarray(xla), frames)
 
 
 def test_inv_sigma_roundtrip():
     s = relayout.sigma()
     inv = relayout.inv_sigma()
     np.testing.assert_array_equal(s[inv], np.arange(512))
-    # column-permuted pixels land in the kernel's perm layout:
+    # column-permuted pixels land in the perm layout:
     # perm[:, j] = pixels[:, inv[j]]  <=>  perm[:, s[c]] = pixels[:, c]
     x = np.random.default_rng(1).integers(0, 255, (3, 512))
     np.testing.assert_array_equal(x[:, inv][:, s], x)
@@ -120,8 +106,8 @@ def test_wire_decode_step_matches_flat(rng, t, h, w):
     """decode_step_planar4(wire=True) on the wire layout must emit frames
     BYTE-identical to the flat-plane path: the word-grouped nibble peel +
     exact pair unscramble (round 4) may not perturb a single pixel, with
-    exceptions landing on every parity and cube (transparency invariant;
-    TPU-side twin: tools/validate_wire_decode_tpu.py)."""
+    exceptions landing on every parity and cube (transparency
+    invariant)."""
     from dct3d_tpu.codec.transform import TransformContext, decode_step_planar4
 
     cfg = CodecConfig()

@@ -163,7 +163,7 @@ def test_sharded_decoder_streams_multi_step():
 def test_sharded_decode_stream_bounded_rss():
     """decode_stream yields per-step batches at O(step) RSS: the inflate
     window's high-water mark stays near one in-flight span, far below the
-    whole payload (VERDICT r2 #5)."""
+    whole payload."""
     from dct3d_tpu.codec import entropy
     from dct3d_tpu.codec.decoder import decode_video
 
@@ -256,36 +256,6 @@ def test_cli_mesh_too_many_devices(tmp_path, capsys):
                      "--mesh", "64x1"]) == 2
 
 
-def test_sharded_step_traces_with_pallas_pack(monkeypatch):
-    """Regression: on real TPUs the sharded encode step routes through the
-    Pallas group packer, whose pallas_call runs INSIDE shard_map — its
-    out_shape aval must carry `vma` or tracing dies (seen live on TPU,
-    invisible to the CPU mesh where the backend gate picks the einsum path).
-    eval_shape only traces, so forcing the gate on works without Mosaic."""
-    from dct3d_tpu.parallel.sharding import ShardedEncoder
-    from dct3d_tpu.ops import bitpack, group_pack
-
-    m = _mesh_or_skip(2, 2)
-    monkeypatch.setattr(bitpack, "_tpu_backend", lambda: True)
-    hits = []
-    real = group_pack.group_pack_values_pallas
-    monkeypatch.setattr(
-        group_pack, "group_pack_values_pallas",
-        lambda *a, **k: (hits.append(1), real(*a, **k))[1],
-    )
-    cfg = CodecConfig()
-    # 128x128 on a 2x2 mesh: 256 value-groups per shard, comfortably past
-    # the GB=128 gate so the Pallas path (not the einsum) is what traces.
-    enc = ShardedEncoder(128, 128, m, cfg)
-    step = enc._step_fn(max_bytes=65536)
-    frames = jax.ShapeDtypeStruct((16, 128, 128), np.uint8)
-    enc_t = jax.ShapeDtypeStruct(enc.ctx.enc_t.shape, enc.ctx.enc_t.dtype)
-    carry = jax.ShapeDtypeStruct((1,), np.int32)
-    out = jax.eval_shape(step, frames, enc_t, carry)
-    assert out[0].shape[0] == 4
-    assert hits, "Pallas values-packer was not traced (gate routed around it)"
-
-
 @pytest.mark.parametrize("tight_cfg", [
     dict(quant_strength=0, pack_bits_per_value=2),   # per-group overflow
     dict(stream_bits_per_value=1),                   # stream-buffer overflow
@@ -317,7 +287,7 @@ def test_sharded_budget_ladder_climbs_on_noise():
 
 
 def test_sharded_720p_one_step_byte_identity():
-    """Realistic geometry (round 4, VERDICT): one (gop=4, tile=2) mesh
+    """Realistic geometry: one (gop=4, tile=2) mesh
     step at 1280x720 — 14,400 cubes/GOP — pins shard-boundary arithmetic
     at real cube counts: the sharded bitstream must be byte-identical to
     the single-device encoder's, and the sharded turbo members identical
